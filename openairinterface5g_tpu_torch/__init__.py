@@ -6,8 +6,9 @@ against the other.  Plain tensor code is PyTorch; the Pallas kernels of the
 JAX package become hand-written CUDA C++ kernels for Hopper (``csrc/``),
 built at first use by ``ops/_cuda.py``.
 
-This package imports no JAX.  It shares the JAX package's jax-free modules
-(``config``, ``transport``, ``data``).
+This package imports no JAX and nothing of the JAX package: it keeps its
+own copies of the jax-free modules it needs (``config``, ``transport``,
+``data/tables``).
 """
 import torch
 

@@ -5,9 +5,9 @@ signature, (graph, llr, n_iters, **kw) -> (bits, ok):
 
   'reference' — flooding min-sum in PyTorch (coding/ldpc.py::decode), the
                 reference schedule; stops once every code block passes
-  'kernel'    — layered min-sum CUDA kernel (ops/ldpc_decoder.py; its plain
-                PyTorch version for CPU tensors), per-code-block early stop
-                every `check_every` iterations
+  'kernel'    — min-sum CUDA kernel (ops/ldpc_decoder.py; its plain PyTorch
+                version for CPU tensors), layered or flooding (`schedule`),
+                per-code-block early stop every `check_every` iterations
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ def _decode_reference(graph, llr, n_iters=12, **kw):
 
 def _decode_kernel(graph, llr, n_iters=8, **kw):
     return ldpc_decoder.decode(graph, llr, n_iters=n_iters,
+                               schedule=kw.get("schedule", "layered"),
                                check_every=kw.get("check_every", 0))
 
 

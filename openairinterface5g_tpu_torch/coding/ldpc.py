@@ -22,7 +22,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from openairinterface5g_tpu.data.tables import BG_INFO_COLS, load_base_graph
+from ..data.tables import BG_INFO_COLS, load_base_graph
 
 _BIG = 1e30
 

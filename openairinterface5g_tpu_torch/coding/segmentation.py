@@ -9,7 +9,7 @@ import dataclasses
 
 import torch
 
-from openairinterface5g_tpu.data.tables import ALL_LIFTING_SIZES, BG_KCB
+from ..data.tables import ALL_LIFTING_SIZES, BG_KCB
 
 from .crc import crc_attach
 

@@ -26,7 +26,7 @@ def config_from_jax(jax_cfg) -> PuschConfig:
     return PuschConfig(**fields)
 
 
-def harq_from_numpy(arr: np.ndarray, device: torch.device | str = "cpu") -> torch.Tensor:
+def harq_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
     """A JAX HARQ soft buffer (B, C, cols*Z), given as numpy, as a tensor on
     `device` with the same dtype (float32, or bfloat16 when the JAX receiver
     staged it so)."""

@@ -20,12 +20,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from openairinterface5g_tpu.config import FrameParams, make_frame_params
-from openairinterface5g_tpu.transport import compute_tbs, mcs_to_qm_rate
-
 from ..coding import ldpc, rate_matching, segmentation
 from ..coding.backend import decoder as ldpc_decoder
 from ..coding.crc import CRC_POLYS, crc_attach, crc_ok
+from ..config import FrameParams, make_frame_params
 from ..ops import pusch_frontend as fe
 from ..phy import channel_estimation as ce
 from ..phy import equalization as eq
@@ -34,6 +32,7 @@ from ..phy import modulation as mod
 from ..phy import refsig
 from ..phy.ofdm import extract_from_grid, map_to_grid, ofdm_demodulate, ofdm_modulate
 from ..phy.scrambling import pusch_cinit, scramble, scramble_llrs
+from ..transport import compute_tbs, mcs_to_qm_rate
 
 _DECODER_BACKENDS = ("reference", "kernel")
 _FRONTEND_BACKENDS = ("auto", "reference", "kernel")

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library is built at
-first use into ``_build/`` beside the package (listed in ``.gitignore``);
-its file name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused.
+Each source compiles with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once in parallel processes, and the objects link into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library is
+built at first use into ``_build/`` beside the package (listed in
+``.gitignore``); its file name carries a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` after the launch; ``check`` turns a non-zero code
@@ -27,24 +28,31 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points: name -> argtypes (restype is int)
 _SIGNATURES = {
-    "ldpc_decode_layered": (
-        _P, _I, _P, _P, _P,            # llr, in_bf16, bits, ok, c2v scratch
-        _P, _P, _P,                    # row_ptr, ecol, eshift
+    "ldpc_decode": (
+        _P, _I, _I, _I,                # llr, in_kind, msg_kind, flooding
+        _P, _P, _P,                    # bits, ok, c2v scratch
+        _P, _P, _P, _P, _P,            # row_ptr, ecol, eshift, col_ptr, col_edge
         _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
         _I, _I, _F, _P),               # n_iters, check_every, alpha, stream
+    "ldpc_decode_bf16": (
+        _P, _P, _P, _P,                # llr, bits, ok, c2v scratch
+        _P, _P, _P,                    # row_ptr, ecol, eshift
+        _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
+        _I, _F, _P),                   # n_iters, alpha (bf16-rounded), stream
     "pusch_frontend": (
         _P, _P, _P, _P, _P,            # y, pilots, dmrs_syms, data_syms, cbits
         _P, _P, _P,                    # h scratch, nvar scratch, planes
         _I, _I, _I, _I, _I, _I,        # B, R, P, n_sym, n_sc, a0
         _I, _I, _I, _I, _I, _I,        # n_prb, delta, n_dmrs, n_data, qm, window
         _P),                           # stream
+    "tiny_times_two": (_P, _P, _I, _P),  # x, out, n_blocks, stream
 }
 
 
@@ -69,19 +77,29 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile the library if no build of the current sources exists."""
+    """Compile the library if no build of the current sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     so = BUILD_DIR / f"liboai5g_kernels_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)                 # atomic: concurrent builds agree
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [(src.name, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(sources(), procs)]
+        failed = [f"{name} ({rc}):\n{log}" for name, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = Path(work) / so.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)             # atomic: concurrent builds agree
     return so
 
 

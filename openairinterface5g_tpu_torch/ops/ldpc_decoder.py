@@ -1,15 +1,27 @@
-"""K1: layered min-sum LDPC decoder — CUDA kernel and its plain version.
+"""K1 and K2: the LDPC decoders' CUDA kernels and their plain versions.
 
-Port of openairinterface5g_tpu/ops/ldpc_pallas.py::decode_pallas (layered
-schedule, f32 messages).  ``decode`` launches ``csrc/ldpc_decoder.cu`` for a
-CUDA tensor and runs ``decode_plain`` for a CPU tensor; ``decode_plain`` is
-the same schedule in PyTorch, with the same float operation order, so both
-give the same hard bits.
+Port of openairinterface5g_tpu/ops/ldpc_pallas.py::decode_pallas with every
+variant it has: the row-layered or the flooding schedule, f32, int8 or bf16
+messages, f32 or bf16 input, early stop every ``check_every`` iterations.
+``decode`` prepares the input as decode_pallas does and, for a CUDA
+tensor, launches
+
+  * K1, ``csrc/ldpc_decoder.cu`` (``_build_decoder``), for every variant
+    but one: layered or flooding with f32 messages, layered or flooding
+    with int8 messages (int32 totals), flooding with bf16 messages;
+  * K2, ``csrc/ldpc_decoder_bf16.cu`` (``_build_decoder_bf16``), for bf16
+    messages under the layered schedule, as decode_pallas dispatches it.
+
+For a CPU tensor it runs ``decode_plain``, the same schedules in PyTorch
+with the same operation order and rounding, so kernel, plain version and
+Pallas kernel give the same hard bits.
 
 Early stop: with check_every > 0 each code block ends its decode after the
 first checked iteration whose syndrome is zero.  The Pallas kernel stopped
-groups of 16 code blocks together; a converged code block that keeps
+groups of ``sb`` code blocks together; a converged code block that keeps
 iterating there can only differ where min-sum leaves a valid codeword again.
+K2 ignores ``check_every``, as ``_build_decoder_bf16`` does (it takes the
+argument and never reads it): it always runs ``n_iters`` iterations.
 """
 from __future__ import annotations
 
@@ -19,9 +31,41 @@ import numpy as np
 import torch
 
 from ..coding.ldpc import LDPCGraph, build_graph
+from ..phy.llr import quantize
 from . import _cuda
 
-launches = 0          # kernel launches by ``decode`` (CUDA tensors only)
+SCHEDULES = ("layered", "flooding")
+_MSG_NAMES = {torch.float32: "f32", torch.int8: "int8", torch.bfloat16: "bf16"}
+_MSG_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}   # csrc MsgKind
+_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}   # csrc input type
+_BF16_CLIP = 24.0        # ldpc_pallas.py:546, :563: bf16 totals stay near-exact
+
+# one count per kernel, raised where ``decode`` launches it (CUDA tensors
+# only); "layered_bf16" is K2, every other entry a variant of K1
+KERNELS = ("layered_f32", "flooding_f32", "layered_int8", "flooding_int8",
+           "flooding_bf16", "layered_bf16")
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def kernel_name(schedule: str, msg_dtype: torch.dtype) -> str:
+    """The kernel ``decode`` runs for a variant: a key of ``launches``."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r}; have {SCHEDULES}")
+    if msg_dtype not in _MSG_NAMES:
+        raise ValueError(f"msg_dtype {msg_dtype}; have {tuple(_MSG_NAMES)}")
+    return f"{schedule}_{_MSG_NAMES[msg_dtype]}"
+
+
+def prepare_input(llr: torch.Tensor, msg_dtype: torch.dtype) -> torch.Tensor:
+    """The decoder input of a variant (ldpc_pallas.py:546, :556-568): int8
+    messages take LLRs quantized to [-127, 127] as int32; bf16 messages
+    take LLRs clipped to +-24 in bf16; f32 messages take f32 or bf16 LLRs
+    as given, any other type as f32."""
+    if msg_dtype == torch.int8:
+        return quantize(llr.float(), bits=8).to(torch.int32)
+    if msg_dtype == torch.bfloat16:
+        return llr.float().clamp(-_BF16_CLIP, _BF16_CLIP).to(torch.bfloat16)
+    return llr if llr.dtype in (torch.float32, torch.bfloat16) else llr.float()
 
 
 @functools.lru_cache(maxsize=32)
@@ -40,8 +84,20 @@ def _edges_np(bg: int, Z: int):
 
 
 @functools.lru_cache(maxsize=32)
+def _col_edges_np(bg: int, Z: int):
+    """Edges by column for the flooding variable-node pass: col_ptr
+    (cols+1,), col_edge (E,) int32.  Within a column the edges ascend, the
+    order in which ldpc_pallas.py:242-245 adds the messages to a total."""
+    _, col, _ = _edges_np(bg, Z)
+    order = np.argsort(col, kind="stable")
+    col_ptr = np.concatenate([[0], np.cumsum(np.bincount(col, minlength=build_graph(bg, Z).cols))])
+    return col_ptr.astype(np.int32), order.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
 def _edge_tensors(bg: int, Z: int, device: torch.device):
-    return tuple(torch.as_tensor(a, device=device) for a in _edges_np(bg, Z))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (*_edges_np(bg, Z), *_col_edges_np(bg, Z)))
 
 
 @functools.lru_cache(maxsize=32)
@@ -61,91 +117,219 @@ def _plain_tables(bg: int, Z: int, device: torch.device):
     return rows, torch.as_tensor(edge_row, dtype=torch.long, device=device)
 
 
-def _parity_ok(tot: torch.Tensor, rows, edge_row: torch.Tensor) -> torch.Tensor:
-    """(B,) True where every parity check of the hard decisions holds."""
-    B, _, Z = tot.shape
-    hard = (tot < 0).to(torch.float32)
+@functools.lru_cache(maxsize=32)
+def _vn_slots(bg: int, Z: int, device: torch.device):
+    """The flooding variable-node pass as slots: slot j adds the j-th edge
+    (in edge order) of every column that has one.  Per slot: columns (n,),
+    edges (n,), and the (n, Z) gather index from check to variable
+    orientation."""
+    col_ptr, col_edge = _col_edges_np(bg, Z)
+    _, _, shift = _edges_np(bg, Z)
+    deg = np.diff(col_ptr)
+    k = np.arange(Z)
+    slots = []
+    for j in range(int(deg.max())):
+        cs = np.nonzero(deg > j)[0]
+        es = col_edge[col_ptr[cs] + j]
+        slots.append((torch.as_tensor(cs, dtype=torch.long, device=device),
+                      torch.as_tensor(es, dtype=torch.long, device=device),
+                      torch.as_tensor((k - shift[es, None]) % Z, dtype=torch.long, device=device)))
+    return slots
+
+
+def _parity_ok(neg: torch.Tensor, rows, edge_row: torch.Tensor) -> torch.Tensor:
+    """(B,) True where every parity check of the (B, cols, Z) hard
+    decisions `neg` (True = bit 1) holds."""
+    B, _, Z = neg.shape
+    hard = neg.to(torch.float32)
     per_edge = torch.cat(
         [torch.gather(hard[:, c], -1, idx.expand(B, -1, -1)) for (_, _, c, idx, _) in rows],
         dim=1)                                                   # (B, E, Z)
-    syn = torch.zeros((B, len(rows), Z), dtype=torch.float32, device=tot.device)
+    syn = torch.zeros((B, len(rows), Z), dtype=torch.float32, device=neg.device)
     syn.index_add_(1, edge_row, per_edge)
     return torch.all((syn.to(torch.int32) & 1).reshape(B, -1) == 0, dim=1)
 
 
+def _scale_fn(msg_dtype: torch.dtype, alpha: float):
+    """The check-node magnitude scaling of a message type
+    (ldpc_pallas.py:125-131): alpha in f32, alpha rounded to bf16 in bf16,
+    13/16 with rounding in integers."""
+    if msg_dtype == torch.int8:
+        return lambda m: (m * 13 + 8) >> 4
+    if msg_dtype == torch.bfloat16:
+        alpha_bf = float(torch.tensor(alpha, dtype=torch.bfloat16))
+        return lambda m: m * alpha_bf
+    alpha32 = float(np.float32(alpha))
+    return lambda m: m * alpha32
+
+
+_ACC = {torch.float32: torch.float32, torch.int8: torch.int32, torch.bfloat16: torch.bfloat16}
+
+
 def decode_plain(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
-                 alpha: float = 0.8125, check_every: int = 0):
-    """Layered normalized min-sum in PyTorch: (B, cols*Z) -> (bits (B, K)
-    int8, ok (B,) bool).  The reference for the CUDA kernel."""
+                 alpha: float = 0.8125, check_every: int = 0,
+                 schedule: str = "layered", msg_dtype: torch.dtype = torch.float32,
+                 return_iters: bool = False):
+    """Normalized min-sum in PyTorch: (B, cols*Z) -> (bits (B, K) int8,
+    ok (B,) bool), and with ``return_iters`` the (B,) int32 iterations each
+    code block ran before its early stop.  The reference for both kernels:
+    bf16 messages under the layered schedule go to ``decode_bf16_plain``
+    (K2), every other variant runs here (K1).
+
+    Totals and messages are kept in the accumulation type of the message
+    type (f32, int32 or bf16; int8 messages as int32 values saturated to
+    +-127), and every operation of ldpc_pallas.py:225-275 is one PyTorch
+    operation in that type, so bf16 rounds where the Pallas kernel rounds.
+    """
+    kernel_name(schedule, msg_dtype)
+    if msg_dtype == torch.bfloat16 and schedule == "layered":
+        bits, ok = decode_bf16_plain(graph, llr, n_iters, alpha)
+        iters = torch.full(ok.shape, n_iters, dtype=torch.int32, device=ok.device)
+        return (bits, ok, iters) if return_iters else (bits, ok)
     g = graph
-    B, Z = llr.shape[0], g.Z
-    rows, edge_row = _plain_tables(g.bg, Z, llr.device)
+    x = prepare_input(llr, msg_dtype)
+    B, Z = x.shape[0], g.Z
+    dev = x.device
+    rows, edge_row = _plain_tables(g.bg, Z, dev)
     E = int(edge_row.numel())
-    alpha32 = np.float32(alpha)
-    tot = llr.reshape(B, g.cols, Z).to(torch.float32).clone()
-    c2v = torch.zeros((B, E, Z), dtype=torch.float32, device=llr.device)
-    active = torch.ones((B,), dtype=torch.bool, device=llr.device)
+    acc = _ACC[msg_dtype]
+    scale = _scale_fn(msg_dtype, alpha)
+    x0 = x.reshape(B, g.cols, Z).to(acc)
+    tot = x0.clone()
+    c2v = torch.zeros((B, E, Z), dtype=acc, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     for it in range(n_iters):
+        iters += active
         if check_every:
             prev_tot, prev_c2v = tot.clone(), c2v.clone()
-        for (e0, e1, c, idx, inv) in rows:
+        for (e0, e1, c, idx, inv) in rows:      # flooding: totals fixed in this pass
             deg = e1 - e0
-            t = torch.gather(tot[:, c], -1, idx.expand(B, deg, Z))   # row view
+            t = torch.gather(tot[:, c], -1, idx.expand(B, deg, Z))     # row view
             o = c2v[:, e0:e1]
             v = t - o
             a = v.abs()
-            m12 = torch.topk(a, 2, dim=1, largest=False).values      # min1, min2
+            m12 = torch.topk(a, 2, dim=1, largest=False).values        # min1, min2
             m1, m2 = m12[:, :1], m12[:, 1:]
             neg = v < 0
             par = (neg.sum(dim=1, keepdim=True) & 1).bool()
-            mag = torch.where(a == m1, m2, m1) * alpha32
+            mag = scale(torch.where(a == m1, m2, m1))
             nv = torch.where(par ^ neg, -mag, mag)
-            upd = t + (nv - o)
-            tot[:, c] = torch.gather(upd, -1, inv.expand(B, deg, Z))  # natural view
+            if msg_dtype == torch.int8:
+                nv = nv.clamp(-127, 127)
+            if schedule == "layered":
+                upd = t + (nv - o)
+                tot[:, c] = torch.gather(upd, -1, inv.expand(B, deg, Z))  # natural view
             c2v[:, e0:e1] = nv
+        if schedule == "flooding":
+            # variable-node pass: the LLR plus every message, added in edge
+            # order per column (ldpc_pallas.py:240-245)
+            tot = x0.clone()
+            for cs, es, inv in _vn_slots(g.bg, Z, dev):
+                contrib = torch.gather(c2v[:, es], -1, inv.expand(B, -1, -1))
+                tot[:, cs] = tot[:, cs] + contrib
         if check_every:
             keep = active[:, None, None]
             tot = torch.where(keep, tot, prev_tot)
             c2v = torch.where(keep, c2v, prev_c2v)
             if it % check_every == check_every - 1:
-                active = active & ~_parity_ok(tot, rows, edge_row)
+                active = active & ~_parity_ok(tot < 0, rows, edge_row)
     bits = (tot[:, : g.kc] < 0).to(torch.int8).reshape(B, g.K)
-    return bits, _parity_ok(tot, rows, edge_row)
+    ok = _parity_ok(tot < 0, rows, edge_row)
+    return (bits, ok, iters) if return_iters else (bits, ok)
+
+
+def _sign_bit(x: torch.Tensor) -> torch.Tensor:
+    """True where the bf16 sign bit is set (-0.0 included)."""
+    return x.view(torch.int16) < 0
+
+
+def decode_bf16_plain(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
+                      alpha: float = 0.8125):
+    """K2's plain version: the bf16 sign-magnitude layered min-sum of
+    ldpc_pallas.py:427-489 in PyTorch, (B, cols*Z) -> (bits, ok).
+
+    Input clipped to +-24 in bf16; every operation rounds to bf16.  The
+    sign of a value is its sign bit, so -0.0 counts as negative in the
+    check-node sign and in the parity flag, while the hard bit is
+    ``soft < 0``; the excluded minimum is min1/min2 (the same function as
+    the prefix/suffix sweeps).  No early stop.
+    """
+    g = graph
+    x = prepare_input(llr, torch.bfloat16)
+    B, Z = x.shape[0], g.Z
+    dev = x.device
+    rows, edge_row = _plain_tables(g.bg, Z, dev)
+    E = int(edge_row.numel())
+    scale = _scale_fn(torch.bfloat16, alpha)
+    tot = x.reshape(B, g.cols, Z).clone()
+    c2v = torch.zeros((B, E, Z), dtype=torch.bfloat16, device=dev)
+    for _ in range(n_iters):
+        for (e0, e1, c, idx, inv) in rows:
+            deg = e1 - e0
+            t = torch.gather(tot[:, c], -1, idx.expand(B, deg, Z))
+            o = c2v[:, e0:e1]
+            v = t - o
+            a = v.abs()
+            m12 = torch.topk(a, 2, dim=1, largest=False).values
+            m1, m2 = m12[:, :1], m12[:, 1:]
+            sb = _sign_bit(v)
+            par = (sb.sum(dim=1, keepdim=True) & 1).bool()
+            mag = scale(torch.where(a == m1, m2, m1))
+            val = torch.where(par ^ sb, -mag, mag)          # sign bit XOR onto +mag
+            upd = t + (val - o)
+            tot[:, c] = torch.gather(upd, -1, inv.expand(B, deg, Z))
+            c2v[:, e0:e1] = val
+    bits = (tot[:, : g.kc] < 0).to(torch.int8).reshape(B, g.K)
+    return bits, _parity_ok(_sign_bit(tot), rows, edge_row)
 
 
 def decode(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
-           alpha: float = 0.8125, check_every: int = 0):
-    """(B, cols*Z) LLRs (f32, or bf16 as the PUSCH receiver stages them)
-    -> (bits (B, K) int8, ok (B,) bool).
+           alpha: float = 0.8125, schedule: str = "layered", sb: int | None = None,
+           msg_dtype: torch.dtype = torch.float32, check_every: int = 0):
+    """(B, cols*Z) LLRs -> (bits (B, K) int8, ok (B,) bool), with the
+    signature of decode_pallas.
 
-    A CUDA tensor goes through the kernel; a CPU tensor through
+    schedule 'layered' or 'flooding'; msg_dtype torch.float32, torch.int8
+    or torch.bfloat16 (bf16 + layered is K2).  ``sb``, the number of code
+    blocks a Pallas program held, is accepted for the same signature and
+    has no effect: on the card every code block is one thread block.
+    A CUDA tensor goes through the kernels, a CPU tensor through
     ``decode_plain``.
     """
+    name = kernel_name(schedule, msg_dtype)
     if llr.device.type == "cpu":
-        return decode_plain(graph, llr, n_iters, alpha, check_every)
+        return decode_plain(graph, llr, n_iters, alpha, check_every, schedule, msg_dtype)
     g = graph
     _cuda.require(llr.is_cuda, f"decode: tensor on {llr.device}, not CUDA or CPU")
-    _cuda.require(llr.dtype in (torch.float32, torch.bfloat16),
-                  f"decode: llr dtype {llr.dtype}, need float32 or bfloat16")
     _cuda.require(llr.dim() == 2 and llr.shape[1] == g.cols * g.Z,
                   f"decode: llr shape {tuple(llr.shape)}, need (B, {g.cols * g.Z})")
     _cuda.require(llr.is_contiguous(), "decode: llr must be contiguous")
     _cuda.require(g.Z <= 384, f"decode: Z={g.Z} above 384")
     _cuda.require(n_iters >= 0 and check_every >= 0, "decode: negative count")
-    B = llr.shape[0]
-    row_ptr, ecol, eshift = _edge_tensors(g.bg, g.Z, llr.device)
+    x = prepare_input(llr, msg_dtype).contiguous()
+    B, dev = x.shape[0], x.device
+    row_ptr, ecol, eshift, col_ptr, col_edge = _edge_tensors(g.bg, g.Z, dev)
     E = ecol.numel()
-    bits = torch.empty((B, g.K), dtype=torch.int8, device=llr.device)
-    ok = torch.empty((B,), dtype=torch.bool, device=llr.device)
-    c2v = torch.empty((B, E, g.Z), dtype=torch.float32, device=llr.device)
+    bits = torch.empty((B, g.K), dtype=torch.int8, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
+    if msg_dtype == torch.bfloat16:      # bf16 paths scale by alpha in bf16
+        alpha = float(torch.tensor(alpha, dtype=torch.bfloat16))
     lib = _cuda.library()
-    with torch.cuda.device(llr.device):
-        rc = lib.ldpc_decode_layered(
-            llr.data_ptr(), int(llr.dtype == torch.bfloat16), bits.data_ptr(),
-            ok.data_ptr(), c2v.data_ptr(), row_ptr.data_ptr(), ecol.data_ptr(),
-            eshift.data_ptr(), B, g.rows, g.cols, E, g.Z, g.K, n_iters,
-            check_every, alpha, _cuda.stream_ptr(llr.device))
-    _cuda.check(rc, "ldpc_decode_layered")
-    global launches
-    launches += 1
+    with torch.cuda.device(dev):
+        if name == "layered_bf16":
+            rc = lib.ldpc_decode_bf16(
+                x.data_ptr(), bits.data_ptr(), ok.data_ptr(), c2v.data_ptr(),
+                row_ptr.data_ptr(), ecol.data_ptr(), eshift.data_ptr(),
+                B, g.rows, g.cols, E, g.Z, g.K, n_iters, alpha, _cuda.stream_ptr(dev))
+        else:
+            rc = lib.ldpc_decode(
+                x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype],
+                int(schedule == "flooding"), bits.data_ptr(), ok.data_ptr(),
+                c2v.data_ptr(), row_ptr.data_ptr(), ecol.data_ptr(), eshift.data_ptr(),
+                col_ptr.data_ptr(), col_edge.data_ptr(), B, g.rows, g.cols, E, g.Z,
+                g.K, n_iters, check_every, alpha, _cuda.stream_ptr(dev))
+    _cuda.check(rc, f"ldpc decode ({name})")
+    launches[name] += 1
     return bits, ok

@@ -11,7 +11,7 @@ import math
 import numpy as np
 import torch
 
-from openairinterface5g_tpu.config import FrameParams
+from ..config import FrameParams
 
 
 def map_to_grid(fp: FrameParams, re_values: torch.Tensor) -> torch.Tensor:

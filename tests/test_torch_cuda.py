@@ -97,11 +97,11 @@ def test_decoder_kernel_matches_plain(cuda, bg, Z, n_cb, dtype, check_every):
     g = ldpc.build_graph(bg, Z)
     info, llr = _awgn_llr(g, n_cb, seed=Z + bg, snr_db=1.0)
     x = torch.as_tensor(llr, device=cuda).to(dtype)
-    n0 = ldpc_decoder.launches
+    n0 = ldpc_decoder.launches["layered_f32"]
     bk, okk = ldpc_decoder.decode(g, x, 6, check_every=check_every)
     bp, okp = ldpc_decoder.decode_plain(g, x, 6, check_every=check_every)
     torch.cuda.synchronize()
-    assert ldpc_decoder.launches == n0 + 1
+    assert ldpc_decoder.launches["layered_f32"] == n0 + 1
     assert bk.dtype == torch.int8 and okk.dtype == torch.bool
     assert torch.equal(bk, bp)
     assert torch.equal(okk, okp)
@@ -114,8 +114,10 @@ def test_decoder_kernel_rejects_bad_input(cuda):
     g = ldpc.build_graph(2, 64)
     with pytest.raises(ValueError):
         ldpc_decoder.decode(g, torch.zeros((2, 10), device=cuda))
+    with pytest.raises(ValueError):   # not contiguous
+        ldpc_decoder.decode(g, torch.zeros((g.cols * g.Z, 2), device=cuda).t())
     with pytest.raises(ValueError):
-        ldpc_decoder.decode(g, torch.zeros((2, g.cols * g.Z), device=cuda, dtype=torch.float16))
+        ldpc_decoder.decode(g, torch.zeros((2, g.cols * g.Z), device=cuda), schedule="zigzag")
 
 
 def test_main_path_through_both_kernels(cuda):
@@ -127,8 +129,61 @@ def test_main_path_through_both_kernels(cuda):
     n = rng.standard_normal((2, *tx.shape)).astype(np.float32)
     rx = tx + 0.1 * tx.flip(1) + 0.05 * torch.complex(torch.as_tensor(n[0], device=cuda),
                                                       torch.as_tensor(n[1], device=cuda))
-    f0, d0 = fe.launches, ldpc_decoder.launches
+    f0, d0 = fe.launches, ldpc_decoder.launches["layered_f32"]
     out = pusch.pusch_rx(cfg, rx, n_iters=8)
-    assert fe.launches == f0 + 1 and ldpc_decoder.launches == d0 + 1
+    assert fe.launches == f0 + 1 and ldpc_decoder.launches["layered_f32"] == d0 + 1
     assert bool(out["tb_ok"].all())
     assert torch.equal(out["tb_bits"], tb)
+
+
+# the variants decode() takes beside the main path's: (schedule, message
+# type, input type); bf16 + layered is K2
+VARIANTS = [("flooding", torch.float32, torch.float32), ("flooding", torch.float32, torch.bfloat16),
+            ("layered", torch.int8, torch.float32), ("flooding", torch.int8, torch.float32),
+            ("flooding", torch.bfloat16, torch.float32), ("layered", torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("bg,Z,n_cb", [(2, 64, 5), (1, 384, 9), (1, 13, 4)])
+@pytest.mark.parametrize("schedule,msg_dtype,in_dtype", VARIANTS)
+@pytest.mark.parametrize("check_every", [0, 2])
+def test_decoder_variant_kernel_matches_plain(cuda, bg, Z, n_cb, schedule, msg_dtype,
+                                              in_dtype, check_every):
+    g = ldpc.build_graph(bg, Z)
+    info, llr = _awgn_llr(g, n_cb, seed=Z + bg, snr_db=1.0)
+    x = torch.as_tensor(llr, device=cuda).to(in_dtype)
+    name = ldpc_decoder.kernel_name(schedule, msg_dtype)
+    n0 = ldpc_decoder.launches[name]
+    kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=check_every)
+    bk, okk = ldpc_decoder.decode(g, x, 6, **kw)
+    bp, okp = ldpc_decoder.decode_plain(g, x, 6, **kw)
+    torch.cuda.synchronize()
+    assert ldpc_decoder.launches[name] == n0 + 1
+    assert bk.dtype == torch.int8 and okk.dtype == torch.bool
+    assert torch.equal(bk, bp)
+    assert torch.equal(okk, okp)
+    for i in np.nonzero(okk.cpu().numpy())[0]:
+        np.testing.assert_array_equal(bk[i].cpu().numpy(), info[i])
+
+
+def test_int8_kernel_saturates(cuda):
+    """Large LLRs: int8 messages saturate at +-127 in kernel and plain alike."""
+    g = ldpc.build_graph(2, 64)
+    info, llr = _awgn_llr(g, 3, seed=9, snr_db=12.0)
+    x = torch.as_tensor(llr * 50, device=cuda)
+    for schedule in ("layered", "flooding"):
+        bk, okk = ldpc_decoder.decode(g, x, 5, schedule=schedule, msg_dtype=torch.int8)
+        bp, okp = ldpc_decoder.decode_plain(g, x, 5, schedule=schedule, msg_dtype=torch.int8)
+        assert torch.equal(bk, bp) and torch.equal(okk, okp) and bool(okk.all())
+
+
+@pytest.mark.parametrize("name,shape", [("tiny", (8, 128)), ("tiny_grid", (8, 8, 128))])
+def test_tiny_kernels_match_plain(cuda, name, shape):
+    from openairinterface5g_tpu_torch.ops import tiny
+    x = torch.randn(shape, device=cuda)
+    n0 = tiny.launches[name]
+    got = getattr(tiny, name)(x)
+    torch.cuda.synchronize()
+    assert tiny.launches[name] == n0 + 1
+    assert torch.equal(got, tiny.tiny_plain(x))
+    with pytest.raises(ValueError):
+        getattr(tiny, name)(torch.randn((4, 128), device=cuda))

@@ -93,7 +93,7 @@ def test_plain_early_stop_freezes_converged_blocks():
 def test_cpu_tensor_takes_plain_path():
     g = tldpc.build_graph(2, 64)
     _, llr = _awgn(build_graph(2, 64), 2, seed=5, snr_db=3.0)
-    n0 = ldpc_decoder.launches
+    n0 = dict(ldpc_decoder.launches)
     a = ldpc_decoder.decode(g, torch.as_tensor(llr), n_iters=4, check_every=1)
     b = ldpc_decoder.decode_plain(g, torch.as_tensor(llr), n_iters=4, check_every=1)
     assert ldpc_decoder.launches == n0

@@ -7,7 +7,9 @@
   tb_ok and tb_bits.  20 PRB gives BG1 Z=384, C=2 and the bf16-staged
   decode; 24 PRB gives Z=320 and the f32 one.
 * convert.py: the port's derived configuration values equal the JAX ones.
-* The port package imports no JAX, and unported branches raise.
+* The port package and chip_smoke.py import no JAX and nothing of the JAX
+  package; its copies of the JAX package's tables, frame parameters and
+  TBS helpers equal the originals.  Unported branches raise.
 """
 import dataclasses
 import subprocess
@@ -72,7 +74,7 @@ def _rx_case(n_prb, seed):
     np.testing.assert_array_equal(tout["cb_ok"].numpy(), np.asarray(jout["cb_ok"]))
     # the HARQ buffer carries across: same dtype, values within the
     # frontend tolerance (bf16-rounded where staged)
-    harq = harq_from_numpy(np.asarray(jout["harq_buffers"]))
+    harq = harq_from_numpy(np.asarray(jout["harq_buffers"]), device="cpu")
     assert harq.dtype == tout["harq_buffers"].dtype and harq.shape == tout["harq_buffers"].shape
     diff = (harq.float() - tout["harq_buffers"].float()).abs().max()
     assert float(diff) <= 1e-2 * float(harq.float().abs().max())
@@ -107,8 +109,10 @@ def test_config_derived_values(kw):
     tcfg = config_from_jax(jcfg)
     assert tcfg.decoder_backend == {"xla": "reference", "pallas": "kernel"}[jcfg.decoder_backend]
     assert tcfg.frontend_backend == {"auto": "auto", "xla": "reference"}[jcfg.frontend_backend]
-    for f in ("tbs", "G", "qm_rate", "data_symbols", "sc0", "fp", "n_data_re"):
+    for f in ("tbs", "G", "qm_rate", "data_symbols", "sc0", "n_data_re"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
+    # the port's own FrameParams copy: same fields
+    assert dataclasses.asdict(tcfg.fp) == dataclasses.asdict(jcfg.fp)
     (tp_, tname), (jp_, jname) = tcfg.seg_params(), jcfg.seg_params()
     assert tp_.__dict__ == jp_.__dict__ and tname == jname
     assert tcfg.ncb() == jcfg.ncb()
@@ -122,20 +126,76 @@ def test_config_derived_values(kw):
 
 def test_harq_from_numpy():
     a = np.random.default_rng(0).standard_normal((2, 3, 40)).astype(np.float32)
-    t = harq_from_numpy(a)
+    t = harq_from_numpy(a, device="cpu")
     assert t.dtype == torch.float32 and np.array_equal(t.numpy(), a)
     b = np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
-    t = harq_from_numpy(b)
+    t = harq_from_numpy(b, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), b.astype(np.float32))
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import openairinterface5g_tpu_torch.models.pusch, openairinterface5g_tpu_torch.convert\n"
-            "import openairinterface5g_tpu_torch.ops.ldpc_decoder, openairinterface5g_tpu_torch.ops._cuda\n"
-            "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')], 'jax imported'\n")
+    """Every module of the port (tools included) and chip_smoke.py load
+    neither jax nor any module of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import openairinterface5g_tpu_torch as pkg\n"
+            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
+            "import openairinterface5g_tpu_torch.tools.bench_ldpc_kernel, openairinterface5g_tpu_torch.ops.tiny\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'openairinterface5g_tpu' or m.startswith('openairinterface5g_tpu.')]\n"
+            "assert not bad, bad\n"
+            "assert 'openairinterface5g_tpu_torch.tools.bench_overhead' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_copied_tables_match_jax():
+    """data/tables.py and its npz: the port's copies equal the JAX package's."""
+    from openairinterface5g_tpu.data import tables as jt
+    from openairinterface5g_tpu_torch.data import tables as tt
+    assert (ROOT / "openairinterface5g_tpu_torch/data/spec_tables.npz").read_bytes() == \
+        (ROOT / "openairinterface5g_tpu/data/spec_tables.npz").read_bytes()
+    assert tt.LIFTING_SETS == jt.LIFTING_SETS and tt.ALL_LIFTING_SIZES == jt.ALL_LIFTING_SIZES
+    for name in ("BG_INFO_COLS", "BG_ROWS", "BG_COLS", "BG_KCB"):
+        assert getattr(tt, name) == getattr(jt, name), name
+    for bg in (1, 2):
+        for Z in jt.ALL_LIFTING_SIZES:
+            assert tt.lifting_set_index(Z) == jt.lifting_set_index(Z)
+            np.testing.assert_array_equal(tt.load_base_graph(bg, Z), jt.load_base_graph(bg, Z))
+            assert tt.load_base_graph(bg, Z).dtype == jt.load_base_graph(bg, Z).dtype
+    with pytest.raises(ValueError):
+        tt.lifting_set_index(17)
+
+
+def test_copied_transport_matches_jax():
+    from openairinterface5g_tpu import transport as jtr
+    from openairinterface5g_tpu_torch import transport as ttr
+    for table, n_mcs in ((1, 29), (2, 28)):
+        for mcs in range(n_mcs):
+            qm_r = ttr.mcs_to_qm_rate(mcs, table)
+            assert qm_r == jtr.mcs_to_qm_rate(mcs, table)
+            for n_prb in (1, 6, 24, 51, 106, 273):
+                for n_symb, n_dmrs in ((14, 12), (12, 24), (7, 6), (4, 12)):
+                    for layers in (1, 2, 4):
+                        args = (qm_r[0], qm_r[1] * 1024, n_prb, n_symb, n_dmrs, 0, layers)
+                        assert ttr.compute_tbs(*args) == jtr.compute_tbs(*args), args
+
+
+def test_copied_frame_params_match_jax():
+    from openairinterface5g_tpu import config as jc
+    from openairinterface5g_tpu_torch import config as tc
+    for mu, n_rb in [*jc.CONFIGS.values(), (0, 25), (0, 270), (2, 66), (2, 132), (3, 32), (3, 66)]:
+        t, j = tc.make_frame_params(mu, n_rb), jc.make_frame_params(mu, n_rb)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert tc.fft_size_for_rb(n_rb) == jc.fft_size_for_rb(n_rb)
+        for prop in ("scs", "sample_rate", "n_sc", "slots_per_subframe", "slots_per_frame",
+                     "cp_samples", "cp0_samples", "samples_per_subframe", "first_carrier"):
+            assert getattr(t, prop) == getattr(j, prop), prop
+        for slot in range(t.slots_per_subframe + 1):
+            np.testing.assert_array_equal(t.cp_lengths(slot), j.cp_lengths(slot))
+            np.testing.assert_array_equal(t.symbol_offsets(slot), j.symbol_offsets(slot))
+            assert t.samples_per_slot(slot) == j.samples_per_slot(slot)
 
 
 @pytest.mark.parametrize("kw", [
