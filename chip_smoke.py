@@ -9,26 +9,39 @@ Drives the port's two paths with every hand-written CUDA kernel:
     8 slots per batch, 8 LDPC iterations (K3 and K1's layered f32 variant);
   * slice 2, the LDPC decoder's own entry point ``ops.ldpc_decoder.decode``
     (decode_pallas's signature) in each of its other variants (K1 flooding,
-    int8 and bf16, K2), and the launch probes T1/T2 (``ops.tiny``).
+    int8 and bf16, K2), and the launch probes T1/T2 (``ops.tiny``);
+  * slice 3, the launch route every kernel takes (``ops/_cuda.py``): T1/T2
+    against ``torch.mul(x, 2)`` in turns, the host cost of each wrapper,
+    each kernel's device-only time, and the route's raw stream handle.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
   2. build every kernel from csrc/ with nvcc (one process per source)
   3. K3 (fused frontend) against its plain PyTorch version, 20 and 273 PRB
   4. slice 1 main path: pusch_tx -> channel -> pusch_rx; every TB must pass
-     CRC and equal the sent bits, both kernels must have launched; then the
-     kernels held against their plain versions and timed at the main path's
-     tensors, and slots/s over 20 batches
+     CRC and equal the sent bits, both kernels must have launched; then
+     slots/s and the host enqueue per batch (medians of 5 windows of 20
+     batches, before any profiler session) and torch.mul(x, 2)'s host µs
+     beside them; then the kernels held against their plain versions and
+     timed at the main path's tensors (CUDA events, host enqueue per call,
+     profiler kernel rows)
   5. the decoder's variants through decode() (slice 1's layered f32 with f32
      and bf16 input, and slice 2's), 4 dB, 8 iterations, BG1 Z=384 x 208
      and BG2 Z=104 x 64, check_every 0 and 1: kernel bits == plain bits ==
      sent bits, ok flags equal and all true, every kernel launched; then
      kernel and plain times at BG1 Z=384 x 208 for both check_every
-  6. slice 2 launch probes: T1/T2 against their plain version and x * 2
+  6. launch probes: T1/T2 against their plain version and x * 2; the raw
+     stream handle against torch.cuda.current_stream() on the default
+     stream, a side stream and in graph capture; T1, T2 and torch.mul(x, 2)
+     in turns (tools/bench_launch.py: host µs, CUDA-event ms and graph-
+     replay device ms per call, medians of 15 windows); where T1's host µs go
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
 check_every=1, f32 input, with check_every=0 under *_check_every_0 keys).
+Beside ms (CUDA events over back-to-back calls), each row has device_ms
+(torch.profiler's rows of the kernel's own CUDA kernels, per call) and
+host_us (the wrapper's enqueue per call, median of 5 windows).
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -36,22 +49,25 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 
 import torch
 
-from openairinterface5g_tpu_torch.coding import ldpc, rate_matching
+from openairinterface5g_tpu_torch.coding import ldpc
 from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
-from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
+from openairinterface5g_tpu_torch.tools import bench_launch
 
 SEED = 1234
-B = 8                     # slots per batch
-N_ITERS = 8
+B = bench_launch.MAIN_PATH_B            # slots per batch
+N_ITERS = bench_launch.MAIN_PATH_ITERS  # LDPC iterations
 K3_TOL = 2e-4             # max |kernel - plain| / max |plain| of the LLR planes
-N_TIMED = 20              # batches in the slots/s window
+N_TIMED = bench_launch.MAIN_PATH_BATCHES  # batches in a slots/s window
+N_WINDOWS = 5             # windows of a host-clock or slots/s median
+PROBE_WINDOWS = bench_launch.WINDOWS    # windows of the T1/T2/torch.mul turns
 SNR_DB = 4.0              # decoder phases: BPSK over AWGN at this Es/N0
 DECODER_SIZES = ((1, 384, 208), (2, 104, 64))   # (bg, Z, code blocks)
 
@@ -93,21 +109,55 @@ KERNEL_SOURCES = {
     "tiny": ("openairinterface5g_tpu_torch/csrc/tiny.cu", "tools/bench_overhead.py:53"),
     "tiny_grid": ("openairinterface5g_tpu_torch/csrc/tiny.cu", "tools/bench_overhead.py:81"),
 }
+# names of each kernel's own CUDA kernels, as torch.profiler's rows show them
+DEVICE_KERNELS = {
+    "layered_bf16": ("ldpc_bf16_kernel",),     # K1's variants: ("ldpc_kernel",)
+    "pusch_frontend": ("estimate_kernel", "equalize_llr_kernel"),
+    "tiny": ("times_two_kernel",), "tiny_grid": ("times_two_kernel",),
+}
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events, after one
-    warm-up call."""
+_time_ms = bench_launch.events_ms
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host µs per call of fn, enqueue only: median of N_WINDOWS windows of
+    `calls` back-to-back calls."""
+    return statistics.median(bench_launch.host_us(fn, calls) for _ in range(N_WINDOWS))
+
+
+def _profiled_rows(fn, calls: int, keys: tuple) -> dict:
+    """key -> (kernel rows' summed µs, launches) of `calls` calls of fn, in
+    the active step of a profile whose first step is the profiler's own
+    warm-up: kernels launched in the first milliseconds of a profile can
+    go unrecorded."""
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                schedule=schedule) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = prof.key_averages()
+    return {k: (sum(e.self_device_time_total for e in rows if k in e.key),
+                sum(e.count for e in rows if k in e.key)) for k in keys}
+
+
+def _device_ms(name: str, fn, calls: int, attempts: int = 3) -> float:
+    """Device ms per call of fn: for each of kernel `name`'s own CUDA
+    kernels, the mean duration of its torch.profiler rows over `calls`
+    calls, summed over the kernels one call launches.  A profile that
+    recorded under half the launches is taken again."""
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    keys = DEVICE_KERNELS.get(name, ("ldpc_kernel",))
+    for _ in range(attempts):
+        found = _profiled_rows(fn, calls, keys)
+        if all(n >= calls // 2 for _, n in found.values()):
+            return sum(us / n for us, n in found.values()) / 1e3
+    raise AssertionError(f"{name}: profiler recorded launches {found} in {calls} calls")
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -169,7 +219,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     so = _cuda.build()
-    _cuda.library()
+    _cuda.route()
     print(f"build: {so.name} from {len(_cuda.sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -223,13 +273,9 @@ def _awgn_code_blocks(bg, Z, n_cb, dev, gen):
 
 
 def phase_main_path(dev, gen, card: str) -> dict:
-    cfg = pusch.PuschConfig(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2,
-                            decoder_backend="kernel", decoder_check_every=1)
-    tb = torch.randint(0, 2, (B, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
-    tx, _ = pusch.pusch_tx(cfg, tb)
-    noise = torch.complex(torch.randn(tx.shape, generator=gen, device=dev),
-                          torch.randn(tx.shape, generator=gen, device=dev))
-    rx = tx + 0.1 * tx.flip(1) + 0.05 * noise
+    rcv = bench_launch.receiver(dev, gen)
+    cfg, tb, rx, re_grid, g, planes, llr = (rcv.cfg, rcv.tb, rcv.rx, rcv.re_grid, rcv.graph,
+                                             rcv.planes, rcv.llr)
 
     fe.launches = 0
     for k in ldpc_decoder.launches:
@@ -247,17 +293,24 @@ def phase_main_path(dev, gen, card: str) -> dict:
     print(f"main path: 273 PRB MCS16 2x2 B={B}: {n_ok}/{B} TBs pass CRC and equal the "
           f"sent bits ({B * p.C} code blocks); launches {launches}")
 
+    # slots/s and host costs before any profiler session of this process
+    host = bench_launch.receiver_host(rcv, N_WINDOWS)
+    med = {k: statistics.median(v) for k, v in host.items()}
+    ms, batch_ms, enqueue_us = med["batch_ms"], host["batch_ms"], host["enqueue_us"]
+    print(f"main path: {B * 1000.0 / ms:.1f} slots/s ({ms:.4f} ms per {B}-slot batch, CUDA "
+          f"events, median of {N_WINDOWS} windows of {N_TIMED} batches, range "
+          f"{min(batch_ms):.4f}-{max(batch_ms):.4f}); host enqueue {med['enqueue_us'] / 1e3:.4f} "
+          f"ms per batch (range {min(enqueue_us) / 1e3:.4f}-{max(enqueue_us) / 1e3:.4f}) on {card}")
+    calls = bench_launch.in_torch_mul_calls(host)
+    print(f"main path host us, medians of {N_WINDOWS} windows: torch.mul(x, 2) on (8, 128) "
+          f"{med['torch_mul_us']:.3f}; in torch.mul calls of the same window: batch enqueue "
+          f"{calls['enqueue_us']:.2f}, K3 wrapper {calls['pusch_frontend_us']:.3f}, K1 wrapper "
+          f"{calls['layered_f32_us']:.3f}")
+
     # both kernels against their plain versions, then timed, at the main
     # path's own tensors
-    fp = cfg.fp
-    re_grid = extract_from_grid(fp, ofdm_demodulate(fp, rx, cfg.slot)).contiguous()
-    g = ldpc.build_graph(p.bg, p.Z)
-    planes = fe.frontend_planes(cfg, re_grid)
     errs = {"pusch_frontend": _k3_check(f"main path {cfg.n_prb} PRB B={B}", planes,
                                         fe.frontend_planes_plain(cfg, re_grid))}
-    stacked = rate_matching.fused_rate_match_rx_planes(
-        g, planes.to(torch.bfloat16), 0, tuple(cfg.cb_e_sizes()), cfg.qm_rate[0], p.F)
-    llr = stacked.reshape(B * p.C, -1).contiguous()
     bk, okk = ldpc_decoder.decode(g, llr, N_ITERS, check_every=1)
     bp, okp, iters = ldpc_decoder.decode_plain(g, llr, N_ITERS, check_every=1,
                                                return_iters=True)
@@ -266,12 +319,22 @@ def phase_main_path(dev, gen, card: str) -> dict:
     errs["layered_f32"] = int((bk.int() - bp.int()).abs().max())
     print(f"K1 layered f32 at the main path's {B * p.C} code blocks (bf16 LLRs, "
           f"check_every=1): kernel == plain, {int(okk.sum())}/{okk.numel()} parity ok")
+
+    def k3():
+        return fe.frontend_planes(cfg, re_grid)
+
+    def k1():
+        return ldpc_decoder.decode(g, llr, N_ITERS, check_every=1)
+
     times = {
-        "pusch_frontend": (_time_ms(lambda: fe.frontend_planes(cfg, re_grid), 20),
+        "pusch_frontend": (_time_ms(k3, 20),
                            _time_ms(lambda: fe.frontend_planes_plain(cfg, re_grid), 5)),
-        "layered_f32": (_time_ms(lambda: ldpc_decoder.decode(g, llr, N_ITERS, check_every=1), 20),
+        "layered_f32": (_time_ms(k1, 20),
                         _time_ms(lambda: ldpc_decoder.decode_plain(g, llr, N_ITERS, check_every=1), 3)),
     }
+    host = {"pusch_frontend": med["pusch_frontend_us"], "layered_f32": med["layered_f32_us"]}
+    device = {"pusch_frontend": _device_ms("pusch_frontend", k3, 20),
+              "layered_f32": _device_ms("layered_f32", k1, 5)}
     bounds = {
         "layered_f32": _decoder_bound(g, llr, iters, 1),
         "pusch_frontend": _bound(
@@ -280,13 +343,12 @@ def phase_main_path(dev, gen, card: str) -> dict:
     }
     print(f"main path decode: {B * p.C} code blocks ran {float(iters.float().mean()):.3f} "
           f"iterations each on average (plain version's early stop, check_every=1)")
-
-    for _ in range(3):
-        pusch.pusch_rx(cfg, rx, n_iters=N_ITERS)
-    ms = _time_ms(lambda: pusch.pusch_rx(cfg, rx, n_iters=N_ITERS), N_TIMED)
-    print(f"main path: {B * 1000.0 / ms:.1f} slots/s ({ms:.3f} ms per {B}-slot batch, "
-          f"{N_TIMED} batches, CUDA events) on {card}")
-    return {"launches": launches, "errs": errs, "times": times, "bounds": bounds}
+    for name in times:
+        print(f"{name} at the main path's tensors: {times[name][0]:.4f} ms by CUDA events, "
+              f"{device[name]:.4f} ms on the device (profiler), wrapper enqueue "
+              f"{host[name]:.2f} us per call")
+    return {"launches": launches, "errs": errs, "times": times, "bounds": bounds,
+            "device": device, "host": host}
 
 
 def phase_decoder(dev, gen) -> dict:
@@ -331,22 +393,82 @@ def phase_decoder(dev, gen) -> dict:
         row = {}
         for ce in (0, 1):
             kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=ce)
-            ms = _time_ms(lambda: ldpc_decoder.decode(g, x, N_ITERS, **kw), 10)
+
+            def kernel():
+                return ldpc_decoder.decode(g, x, N_ITERS, **kw)
+
+            ms = _time_ms(kernel, 10)
             plain_ms = _time_ms(lambda: ldpc_decoder.decode_plain(g, x, N_ITERS, **kw), 2)
             it = iters[label, ce]
             bound, by = _decoder_bound(g, ldpc_decoder.prepare_input(x, msg_dtype), it,
                                        0 if name == "layered_bf16" else ce)   # K2: no checks
             row[ce] = {"ms": ms, "plain_ms": plain_ms, "bound": (bound, by),
-                       "err": errs[label, ce], "mean_iters": float(it.float().mean())}
+                       "err": errs[label, ce], "mean_iters": float(it.float().mean()),
+                       "device_ms": _device_ms(name, kernel, 3), "host_us": _host_us(kernel, 20)}
             print(f"{label} BG{g.bg} Z={g.Z} x{x.shape[0]} check_every={ce}: kernel {ms:.4f} ms, "
+                  f"device {row[ce]['device_ms']:.4f} ms, enqueue {row[ce]['host_us']:.2f} us, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), "
                   f"{row[ce]['mean_iters']:.3f} iterations per code block")
         rows.setdefault(name, row)           # first row of a kernel: f32 input
     return {"launches": launches, "rows": rows}
 
 
+def _check_raw_stream(dev) -> None:
+    """The route's raw stream handle is torch.cuda.current_stream()'s on
+    the default stream, on a side stream and during graph capture."""
+    r = _cuda.route()
+
+    def same(where: str) -> None:
+        raw, cur = r.stream(dev.index), torch.cuda.current_stream(dev).cuda_stream
+        if raw != cur:
+            raise AssertionError(f"raw stream {raw:#x} != current stream {cur:#x} {where}")
+
+    same("on the default stream")
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        same("on a side stream")
+    x = torch.zeros((8, 128), device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        same("during graph capture")
+        x.mul_(2)
+    print("route: raw stream handle == torch.cuda.current_stream().cuda_stream on the "
+          "default stream, on a side stream and during graph capture")
+
+
+def _t1_route_parts(x: torch.Tensor) -> dict:
+    """Host µs per call of each step of T1's launch path, medians of
+    PROBE_WINDOWS windows in turns beside the whole wrapper and
+    torch.mul(x, 2):
+    the check, the output allocation, the raw stream, and the ctypes call
+    alone (n_blocks = 0: the entry point returns before its device guard
+    and launch); the rest of the wrapper is the launch and the Python
+    between the steps."""
+    r = _cuda.route()
+    out = torch.empty_like(x)
+    xp, op, index = x.data_ptr(), out.data_ptr(), x.get_device()
+    s = r.stream(index)
+    parts = {
+        "torch.mul": lambda: torch.mul(x, 2),
+        "wrapper": lambda: tiny.tiny(x),
+        "check": lambda: tiny.check_args("tiny", x.shape, x.dtype, x.is_contiguous()),
+        "empty_like": lambda: torch.empty_like(x),
+        "stream": lambda: r.stream(index),
+        "ctypes call, no launch": lambda: r.tiny_times_two(xp, op, 0, index, s),
+    }
+    names = list(parts)
+    samples = {k: [] for k in names}
+    for w in range(PROBE_WINDOWS):
+        for k in (names if w % 2 == 0 else names[::-1]):
+            samples[k].append(bench_launch.host_us(parts[k]))
+    us = {k: statistics.median(v) for k, v in samples.items()}
+    us["launch and the rest"] = us["wrapper"] - sum(us[k] for k in names[2:])
+    return us
+
+
 def phase_probes(dev, gen) -> dict:
-    """Slice 2 launch probes T1/T2 against their plain version and x * 2."""
+    """Launch probes T1/T2 against their plain version and x * 2; then the
+    route: its raw stream, T1/T2 against torch.mul(x, 2) in turns, and
+    where T1's host µs go."""
     for k in tiny.launches:
         tiny.launches[k] = 0
     out = {}
@@ -362,22 +484,42 @@ def phase_probes(dev, gen) -> dict:
     launches = dict(tiny.launches)
     if min(launches.values()) < 1:
         raise AssertionError(f"launch probes missed a kernel: launches {launches}")
+
+    _check_raw_stream(dev)
+    samples = bench_launch.turns(bench_launch.probes(dev, gen), PROBE_WINDOWS)
+    turns, ratios = bench_launch.summary(samples), bench_launch.ratios(samples)
     for name, r in out.items():
         x, fn = r["x"], r["fn"]
-        r["ms"] = _time_ms(lambda: fn(x), 200)
+        mine, lib = turns[name], turns[bench_launch.PAIRS[name]]
+        r["ms"], r["library_ms"] = mine["ms"]["median"], lib["ms"]["median"]
+        r["host_us"], r["library_host_us"] = mine["host_us"]["median"], lib["host_us"]["median"]
+        r["graph_device_ms"] = mine["device_ms"]["median"]
+        r["library_device_ms"] = lib["device_ms"]["median"]
+        r["ratio_to_library"] = ratios[name]
         r["plain_ms"] = _time_ms(lambda: tiny.tiny_plain(x), 200)
-        r["library_ms"] = _time_ms(lambda: torch.mul(x, 2), 200)
+        r["device_ms"] = _device_ms(name, lambda: fn(x), 200)
         r["bound"] = _bound(2 * x.numel() * 4, x.numel())
-        print(f"{name} {tuple(x.shape)}: kernel == x * 2; kernel {r['ms']:.5f} ms, plain "
-              f"{r['plain_ms']:.5f} ms, torch.mul {r['library_ms']:.5f} ms (launch cost)")
-    return {"launches": launches, "probes": out}
+        print(f"{name} {tuple(x.shape)}: kernel == x * 2; per call, medians of {PROBE_WINDOWS} "
+              f"windows in turns, kernel / torch.mul(x, 2): host {r['host_us']:.3f} / "
+              f"{r['library_host_us']:.3f} us, CUDA events {r['ms']:.5f} / "
+              f"{r['library_ms']:.5f} ms, graph replay {r['graph_device_ms']:.5f} / "
+              f"{r['library_device_ms']:.5f} ms; profiler {r['device_ms']:.5f} ms; plain "
+              f"{r['plain_ms']:.5f} ms; median ratio to torch.mul within a window: host "
+              f"{ratios[name]['host_us']:.3f}, events {ratios[name]['ms']:.3f}, graph replay "
+              f"{ratios[name]['device_ms']:.3f}")
+    print(f"launch turns: {json.dumps(turns)}")
+    parts = _t1_route_parts(out["tiny"]["x"])
+    print("T1 route, host us per call: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return {"launches": launches, "probes": out, "route_parts": parts}
 
 
-def _entry(name, launches, err, ms, plain_ms, bound, library_ms=None, **extra):
+def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
+           **extra):
     src, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **extra}
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+            "device_ms": device_ms, "host_us": host_us, **extra}
 
 
 def main() -> None:
@@ -396,20 +538,29 @@ def main() -> None:
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
         ms, plain_ms = main_path["times"][name]
         kernels.append(_entry(name, main_path["launches"][name], main_path["errs"][name],
-                              ms, plain_ms, main_path["bounds"][name]))
+                              ms, plain_ms, main_path["bounds"][name],
+                              main_path["device"][name], main_path["host"][name]))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":
             continue
         r1, r0 = row[1], row[0]
         kernels.append(_entry(name, decoder["launches"][name], r1["err"], r1["ms"],
-                              r1["plain_ms"], r1["bound"], mean_iters=r1["mean_iters"],
+                              r1["plain_ms"], r1["bound"], r1["device_ms"], r1["host_us"],
+                              mean_iters=r1["mean_iters"],
                               max_abs_err_check_every_0=r0["err"],
                               ms_check_every_0=r0["ms"],
                               plain_ms_check_every_0=r0["plain_ms"],
-                              bound_ms_check_every_0=r0["bound"][0]))
+                              bound_ms_check_every_0=r0["bound"][0],
+                              device_ms_check_every_0=r0["device_ms"],
+                              host_us_check_every_0=r0["host_us"]))
     for name, r in probes["probes"].items():
         kernels.append(_entry(name, probes["launches"][name], r["err"], r["ms"],
-                              r["plain_ms"], r["bound"], r["library_ms"]))
+                              r["plain_ms"], r["bound"], r["device_ms"], r["host_us"],
+                              r["library_ms"], graph_device_ms=r["graph_device_ms"],
+                              library_host_us=r["library_host_us"],
+                              library_device_ms=r["library_device_ms"],
+                              ratio_to_library=r["ratio_to_library"],
+                              **({"host_us_parts": probes["route_parts"]} if name == "tiny" else {})))
     print(f"card: {smi_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -50,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxDeg = 19;      // largest check-node degree of BG1 (BG2: 10)
@@ -220,12 +222,13 @@ template <bool kFlooding, int M, typename T>
 int launch(const void* llr, void* bits, void* ok, void* c2v, const void* row_ptr,
            const void* ecol, const void* eshift, const void* col_ptr,
            const void* col_edge, int B, int rows, int cols, int E, int Z, int K,
-           int n_iters, int check_every, float alpha, cudaStream_t stream) {
+           int n_iters, int check_every, float alpha, int device,
+           cudaStream_t stream) {
   using A = Arith<M>;
   const int smem = (kFlooding ? 2 : 1) * cols * Z * (int)sizeof(typename A::acc);
   auto kernel = ldpc_kernel<kFlooding, M, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static oai5g::SmemLimit limit;
+  const cudaError_t err = limit.reserve(reinterpret_cast<const void*>(kernel), device, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, Z, smem, stream>>>(
       static_cast<const T*>(llr), static_cast<int8_t*>(bits),
@@ -245,21 +248,24 @@ int launch(const void* llr, void* bits, void* ok, void* c2v, const void* row_ptr
 // bf16 input under flooding, int8 msgs with int32 input).
 // c2v: (B, E, Z) scratch of the message type; row_ptr (rows+1,),
 // ecol/eshift (E,), col_ptr (cols+1,), col_edge (E,) int32.  For bf16
-// messages `alpha` must already be rounded to bf16.
+// messages `alpha` must already be rounded to bf16.  All tensors on CUDA
+// device `device`.
 extern "C" int ldpc_decode(const void* llr, int in_kind, int msg_kind,
                            int flooding, void* bits, void* ok, void* c2v,
                            const void* row_ptr, const void* ecol,
                            const void* eshift, const void* col_ptr,
                            const void* col_edge, int B, int rows, int cols,
                            int E, int Z, int K, int n_iters, int check_every,
-                           float alpha, void* stream) {
+                           float alpha, int device, void* stream) {
   if (B == 0) return 0;
   if (Z > kMaxZ) return (int)cudaErrorInvalidValue;
+  const oai5g::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LDPC_LAUNCH(FLOOD, M, T)                                                \
   return launch<FLOOD, M, T>(llr, bits, ok, c2v, row_ptr, ecol, eshift, col_ptr, \
                              col_edge, B, rows, cols, E, Z, K, n_iters,          \
-                             check_every, alpha, s)
+                             check_every, alpha, device, s)
   if (msg_kind == kMsgF32 && in_kind == kInF32) {
     if (flooding) LDPC_LAUNCH(true, kMsgF32, float);
     LDPC_LAUNCH(false, kMsgF32, float);

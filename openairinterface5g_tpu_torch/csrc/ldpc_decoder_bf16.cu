@@ -34,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxDeg = 19;
@@ -135,17 +137,21 @@ ldpc_bf16_kernel(const __nv_bfloat16* __restrict__ llr, int8_t* __restrict__ bit
 
 // llr (B, cols*Z) bf16, clipped to ±24 -> bits (B, K) int8, ok (B,) bool.
 // c2v: (B, E, Z) bf16 scratch; row_ptr (rows+1,), ecol/eshift (E,) int32;
-// alpha_bf: alpha already rounded to bf16.
+// alpha_bf: alpha already rounded to bf16.  All tensors on CUDA device
+// `device`.
 extern "C" int ldpc_decode_bf16(const void* llr, void* bits, void* ok, void* c2v,
                                 const void* row_ptr, const void* ecol,
                                 const void* eshift, int B, int rows, int cols,
                                 int E, int Z, int K, int n_iters, float alpha_bf,
-                                void* stream) {
+                                int device, void* stream) {
   if (B == 0) return 0;
   if (Z > kMaxZ) return (int)cudaErrorInvalidValue;
+  const oai5g::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const int smem = cols * Z * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      ldpc_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static oai5g::SmemLimit limit;
+  const cudaError_t err =
+      limit.reserve(reinterpret_cast<const void*>(ldpc_bf16_kernel), device, smem);
   if (err != cudaSuccess) return (int)err;
   ldpc_bf16_kernel<<<B, Z, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(llr), static_cast<int8_t*>(bits),

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kEstThreads = 256;
@@ -256,21 +258,24 @@ equalize_llr_kernel(const float2* __restrict__ y, const float2* __restrict__ h,
 // y (B, R, n_sym, n_sc) complex64 -> planes (B, qm, n_data*12*n_prb*P) f32.
 // pilots (n_dmrs, 6*n_prb) complex64; dmrs_syms (n_dmrs,), data_syms
 // (n_data,) int32; cbits (G,) uint8 scrambling sequence; h (B, R, P,
-// 12*n_prb) complex64 and nvar (B,) f32 are scratch.
+// 12*n_prb) complex64 and nvar (B,) f32 are scratch.  All tensors on CUDA
+// device `device`.
 extern "C" int pusch_frontend(const void* y, const void* pilots,
                               const void* dmrs_syms, const void* data_syms,
                               const void* cbits, void* h, void* nvar,
                               void* planes, int B, int R, int P, int n_sym,
                               int n_sc, int a0, int n_prb, int delta,
                               int n_dmrs, int n_data, int qm, int window,
-                              void* stream) {
+                              int device, void* stream) {
   if (B == 0) return 0;
+  const oai5g::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_pil = 6 * n_prb;
   const int M = 12 * n_prb;
   const int smem = (1 + 2 * P) * n_pil * (int)sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      estimate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static oai5g::SmemLimit limit;
+  cudaError_t err = limit.reserve(reinterpret_cast<const void*>(estimate_kernel), device, smem);
   if (err != cudaSuccess) return (int)err;
   estimate_kernel<<<B, kEstThreads, smem, s>>>(
       static_cast<const float2*>(y), static_cast<const float2*>(pilots),

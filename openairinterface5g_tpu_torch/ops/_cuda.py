@@ -7,19 +7,31 @@ built at first use into ``_build/`` beside the package (listed in
 ``.gitignore``); its file name carries a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is reused.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()`` after the launch; ``check`` turns a non-zero code
-into an exception.
+The launch route.  ``route()`` binds, at the first launch, the library's
+entry points, each with its ``argtypes`` (``c_void_p`` for every pointer
+and the stream, so ctypes never cuts a pointer to 32 bits) and with the
+GIL released around the call, and PyTorch's own accessor of the
+current stream as a raw ``cudaStream_t``,
+``torch._C._cuda_getCurrentRawStream`` (only CUDA builds of torch have it,
+so it is never looked up at import).  A wrapper's launch path is then:
+checks that are plain comparisons (a message is formatted only on
+failure), the outputs from ``torch.empty``, and one ctypes call that takes
+the tensors' device index and the raw stream.  The C side
+(``csrc/launch.cuh``) switches the current device only where it differs,
+raises a kernel's shared-memory limit only when a launch needs more than
+before, launches on that stream (so it stays ordered with PyTorch's ops,
+under ``torch.cuda.stream`` and in graph capture alike) and returns
+``cudaGetLastError()``; a non-zero code raises ``error(rc, ...)``.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 import torch
@@ -33,26 +45,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of the entry points: name -> argtypes (restype is int)
+# C signatures of the entry points: name -> argtypes (restype is int).  Every
+# entry point ends in (device index, stream).
 _SIGNATURES = {
     "ldpc_decode": (
         _P, _I, _I, _I,                # llr, in_kind, msg_kind, flooding
         _P, _P, _P,                    # bits, ok, c2v scratch
         _P, _P, _P, _P, _P,            # row_ptr, ecol, eshift, col_ptr, col_edge
         _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
-        _I, _I, _F, _P),               # n_iters, check_every, alpha, stream
+        _I, _I, _F, _I, _P),           # n_iters, check_every, alpha, device, stream
     "ldpc_decode_bf16": (
         _P, _P, _P, _P,                # llr, bits, ok, c2v scratch
         _P, _P, _P,                    # row_ptr, ecol, eshift
         _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
-        _I, _F, _P),                   # n_iters, alpha (bf16-rounded), stream
+        _I, _F, _I, _P),               # n_iters, alpha (bf16-rounded), device, stream
     "pusch_frontend": (
         _P, _P, _P, _P, _P,            # y, pilots, dmrs_syms, data_syms, cbits
         _P, _P, _P,                    # h scratch, nvar scratch, planes
         _I, _I, _I, _I, _I, _I,        # B, R, P, n_sym, n_sc, a0
         _I, _I, _I, _I, _I, _I,        # n_prb, delta, n_dmrs, n_data, qm, window
-        _P),                           # stream
-    "tiny_times_two": (_P, _P, _I, _P),  # x, out, n_blocks, stream
+        _I, _P),                       # device, stream
+    "tiny_times_two": (_P, _P, _I, _I, _P),  # x, out, n_blocks, device, stream
 }
 
 
@@ -69,8 +82,9 @@ def sources() -> list[Path]:
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -103,28 +117,31 @@ def build() -> Path:
     return so
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+_ROUTE = None
+
+
+def route() -> types.SimpleNamespace:
+    """The launch route, bound at its first call (which builds the library):
+    one attribute per C entry point of ``_SIGNATURES``, and ``stream(index)``,
+    PyTorch's current stream on CUDA device ``index`` as a raw handle."""
+    return _ROUTE if _ROUTE is not None else _bind()
+
+
+def _bind() -> types.SimpleNamespace:
+    global _ROUTE
+    # CDLL releases the GIL around each call: a launch can block (a full
+    # launch queue, a kernel module's first load on a device)
     lib = ctypes.CDLL(str(build()))
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    _ROUTE = types.SimpleNamespace(lib=lib, stream=torch._C._cuda_getCurrentRawStream, **fns)
+    return _ROUTE
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def check(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned after a launch."""
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
-
-
-def require(cond: bool, msg: str) -> None:
-    """Argument check of a kernel wrapper (raises; survives ``python -O``)."""
-    if not cond:
-        raise ValueError(msg)
+def error(rc: int, what: str) -> RuntimeError:
+    """The exception for a non-zero cudaError_t returned by a launch."""
+    return RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

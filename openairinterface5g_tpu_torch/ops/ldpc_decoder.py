@@ -47,13 +47,28 @@ KERNELS = ("layered_f32", "flooding_f32", "layered_int8", "flooding_int8",
 launches = dict.fromkeys(KERNELS, 0)
 
 
+_KERNEL_NAMES = {(s, m): f"{s}_{n}" for s in SCHEDULES for m, n in _MSG_NAMES.items()}
+
+
 def kernel_name(schedule: str, msg_dtype: torch.dtype) -> str:
     """The kernel ``decode`` runs for a variant: a key of ``launches``."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule {schedule!r}; have {SCHEDULES}")
-    if msg_dtype not in _MSG_NAMES:
+    name = _KERNEL_NAMES.get((schedule, msg_dtype))
+    if name is None:
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule {schedule!r}; have {SCHEDULES}")
         raise ValueError(f"msg_dtype {msg_dtype}; have {tuple(_MSG_NAMES)}")
-    return f"{schedule}_{_MSG_NAMES[msg_dtype]}"
+    return name
+
+
+def check_args(graph: LDPCGraph, shape, contiguous: bool, n_iters: int,
+               check_every: int) -> None:
+    """Raise ValueError unless the kernels take LLRs of this shape and layout
+    for this graph: (B, cols*Z), contiguous, Z <= 384, counts >= 0."""
+    if (len(shape) != 2 or shape[1] != graph.cols * graph.Z or not contiguous
+            or graph.Z > 384 or n_iters < 0 or check_every < 0):
+        raise ValueError(f"decode: llr shape {tuple(shape)} contiguous={contiguous}, need "
+                         f"contiguous (B, {graph.cols * graph.Z}); Z={graph.Z} (at most "
+                         f"384), n_iters={n_iters}, check_every={check_every} (not negative)")
 
 
 def prepare_input(llr: torch.Tensor, msg_dtype: torch.dtype) -> torch.Tensor:
@@ -96,8 +111,17 @@ def _col_edges_np(bg: int, Z: int):
 
 @functools.lru_cache(maxsize=32)
 def _edge_tensors(bg: int, Z: int, device: torch.device):
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (*_edges_np(bg, Z), *_col_edges_np(bg, Z)))
+    """The kernels' edge tables on the device (row_ptr, ecol, eshift,
+    col_ptr, col_edge), and their data pointers in that order."""
+    ts = tuple(torch.as_tensor(a, device=device)
+               for a in (*_edges_np(bg, Z), *_col_edges_np(bg, Z)))
+    return ts, tuple(t.data_ptr() for t in ts)
+
+
+@functools.lru_cache(maxsize=32)
+def _round_bf16(x: float) -> float:
+    """x rounded to bf16 (round to nearest even)."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
 @functools.lru_cache(maxsize=32)
@@ -157,7 +181,7 @@ def _scale_fn(msg_dtype: torch.dtype, alpha: float):
     if msg_dtype == torch.int8:
         return lambda m: (m * 13 + 8) >> 4
     if msg_dtype == torch.bfloat16:
-        alpha_bf = float(torch.tensor(alpha, dtype=torch.bfloat16))
+        alpha_bf = _round_bf16(alpha)
         return lambda m: m * alpha_bf
     alpha32 = float(np.float32(alpha))
     return lambda m: m * alpha32
@@ -298,38 +322,37 @@ def decode(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
     ``decode_plain``.
     """
     name = kernel_name(schedule, msg_dtype)
-    if llr.device.type == "cpu":
-        return decode_plain(graph, llr, n_iters, alpha, check_every, schedule, msg_dtype)
-    g = graph
-    _cuda.require(llr.is_cuda, f"decode: tensor on {llr.device}, not CUDA or CPU")
-    _cuda.require(llr.dim() == 2 and llr.shape[1] == g.cols * g.Z,
-                  f"decode: llr shape {tuple(llr.shape)}, need (B, {g.cols * g.Z})")
-    _cuda.require(llr.is_contiguous(), "decode: llr must be contiguous")
-    _cuda.require(g.Z <= 384, f"decode: Z={g.Z} above 384")
-    _cuda.require(n_iters >= 0 and check_every >= 0, "decode: negative count")
+    if llr.is_cuda:
+        return _launch(name, graph, llr, n_iters, alpha, msg_dtype, check_every)
+    if llr.device.type != "cpu":
+        raise ValueError(f"decode: tensor on {llr.device}, not CUDA or CPU")
+    return decode_plain(graph, llr, n_iters, alpha, check_every, schedule, msg_dtype)
+
+
+def _launch(name: str, g: LDPCGraph, llr: torch.Tensor, n_iters: int, alpha: float,
+            msg_dtype: torch.dtype, check_every: int):
+    check_args(g, llr.shape, llr.is_contiguous(), n_iters, check_every)
     x = prepare_input(llr, msg_dtype).contiguous()
-    B, dev = x.shape[0], x.device
-    row_ptr, ecol, eshift, col_ptr, col_edge = _edge_tensors(g.bg, g.Z, dev)
-    E = ecol.numel()
+    B, dev, index = x.shape[0], x.device, x.get_device()
+    tables, ptrs = _edge_tensors(g.bg, g.Z, dev)
+    E = tables[1].numel()
     bits = torch.empty((B, g.K), dtype=torch.int8, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
-    if msg_dtype == torch.bfloat16:      # bf16 paths scale by alpha in bf16
-        alpha = float(torch.tensor(alpha, dtype=torch.bfloat16))
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        if name == "layered_bf16":
-            rc = lib.ldpc_decode_bf16(
-                x.data_ptr(), bits.data_ptr(), ok.data_ptr(), c2v.data_ptr(),
-                row_ptr.data_ptr(), ecol.data_ptr(), eshift.data_ptr(),
-                B, g.rows, g.cols, E, g.Z, g.K, n_iters, alpha, _cuda.stream_ptr(dev))
-        else:
-            rc = lib.ldpc_decode(
-                x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype],
-                int(schedule == "flooding"), bits.data_ptr(), ok.data_ptr(),
-                c2v.data_ptr(), row_ptr.data_ptr(), ecol.data_ptr(), eshift.data_ptr(),
-                col_ptr.data_ptr(), col_edge.data_ptr(), B, g.rows, g.cols, E, g.Z,
-                g.K, n_iters, check_every, alpha, _cuda.stream_ptr(dev))
-    _cuda.check(rc, f"ldpc decode ({name})")
+    if msg_dtype is torch.bfloat16:      # bf16 paths scale by alpha in bf16
+        alpha = _round_bf16(alpha)
+    r = _cuda.route()
+    if name == "layered_bf16":
+        rc = r.ldpc_decode_bf16(
+            x.data_ptr(), bits.data_ptr(), ok.data_ptr(), c2v.data_ptr(), *ptrs[:3],
+            B, g.rows, g.cols, E, g.Z, g.K, n_iters, alpha, index, r.stream(index))
+    else:
+        rc = r.ldpc_decode(
+            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype],
+            int(name.startswith("flooding")), bits.data_ptr(), ok.data_ptr(),
+            c2v.data_ptr(), *ptrs, B, g.rows, g.cols, E, g.Z, g.K, n_iters,
+            check_every, alpha, index, r.stream(index))
+    if rc:
+        raise _cuda.error(rc, f"ldpc decode ({name})")
     launches[name] += 1
     return bits, ok

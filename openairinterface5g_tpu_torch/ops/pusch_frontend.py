@@ -13,6 +13,7 @@ channel estimation, equalization, LLRs, descrambling) for a CPU tensor.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,50 +66,75 @@ def frontend_planes_plain(cfg, re_grid: torch.Tensor) -> torch.Tensor:
     return _plane_layout(cfg, llr_lay.reshape(B, L, -1, qm))
 
 
+def check_args(grid: tuple, shape, dtype: torch.dtype, contiguous: bool) -> None:
+    """Raise ValueError unless the kernel takes an RE grid of this shape,
+    type and layout, for a configuration whose grid per slot is `grid`
+    (n_rx, symbols, n_sc)."""
+    if dtype is not torch.complex64 or len(shape) != 4 or shape[1:] != grid or not contiguous:
+        raise ValueError(f"frontend_planes: need a contiguous complex64 grid (B, {grid[0]}, "
+                         f"{grid[1]}, {grid[2]}), got {dtype} {tuple(shape)}, "
+                         f"contiguous={contiguous}")
+
+
+class _Plan(NamedTuple):
+    """What a launch needs of its configuration, computed once per
+    configuration and device."""
+    grid: tuple                  # (n_rx, symbols, n_sc) of the RE grid per slot
+    h_shape: tuple               # (R, P, M) channel-estimate scratch per slot
+    planes_shape: tuple          # (qm, G // qm) per slot
+    consts: tuple                # pilots, DMRS and data symbols, scrambling bits
+    ptrs: tuple                  # their data pointers
+    ints: tuple                  # R, P, n_sym, n_sc, a0, n_prb, delta, n_dmrs, n_data, qm, window
+
+
 @functools.lru_cache(maxsize=16)
-def _device_consts(cfg, device: torch.device):
-    """Pilots (n_dmrs, 6*n_prb) complex64, DMRS and data symbol indices,
-    and the scrambling sequence as uint8, on the device."""
+def _plan(cfg, device: torch.device) -> _Plan:
+    """The plan of `cfg` on `device`; its constants there are the pilots
+    (n_dmrs, 6*n_prb) complex64, the DMRS and data symbol indices, and the
+    scrambling sequence as uint8.  An unsupported configuration raises
+    ValueError (on every call: lru_cache keeps no exception)."""
+    if not supported(cfg):
+        raise ValueError("frontend_planes: configuration not supported by the kernel")
+    fp = cfg.fp
+    P, qm = cfg.n_layers, cfg.qm_rate[0]
     pil = np.stack([cfg.dmrs_pilot_np(s) for s in cfg.dmrs_symbols])
-    return (torch.as_tensor(pil, device=device),
-            torch.as_tensor(np.asarray(cfg.dmrs_symbols, np.int32), device=device),
-            torch.as_tensor(np.asarray(cfg.data_symbols, np.int32), device=device),
-            _scrambling_bits(cfg, device).view(torch.uint8))
+    consts = (torch.as_tensor(pil, device=device),
+              torch.as_tensor(np.asarray(cfg.dmrs_symbols, np.int32), device=device),
+              torch.as_tensor(np.asarray(cfg.data_symbols, np.int32), device=device),
+              _scrambling_bits(cfg, device).view(torch.uint8))
+    delta = refsig.dmrs_type1_port_weights(cfg.dmrs_port0 % 4)[1]
+    ints = (cfg.n_rx, P, fp.symbols_per_slot, fp.n_sc, cfg.sc0, cfg.n_prb, delta,
+            len(cfg.dmrs_symbols), len(cfg.data_symbols), qm, cfg.chest_window)
+    return _Plan((cfg.n_rx, fp.symbols_per_slot, fp.n_sc), (cfg.n_rx, P, 12 * cfg.n_prb),
+                 (qm, cfg.G // qm), consts, tuple(t.data_ptr() for t in consts), ints)
+
+
+def _launch(cfg, re_grid: torch.Tensor) -> torch.Tensor:
+    dev = re_grid.device
+    plan = _plan(cfg, dev)
+    check_args(plan.grid, re_grid.shape, re_grid.dtype, re_grid.is_contiguous())
+    B, index = re_grid.shape[0], re_grid.get_device()
+    h = torch.empty((B, *plan.h_shape), dtype=torch.complex64, device=dev)
+    nvar = torch.empty((B,), dtype=torch.float32, device=dev)
+    planes = torch.empty((B, *plan.planes_shape), dtype=torch.float32, device=dev)
+    r = _cuda.route()
+    rc = r.pusch_frontend(re_grid.data_ptr(), *plan.ptrs, h.data_ptr(), nvar.data_ptr(),
+                          planes.data_ptr(), B, *plan.ints, index, r.stream(index))
+    if rc:
+        raise _cuda.error(rc, "pusch_frontend")
+    global launches
+    launches += 1
+    return planes
 
 
 def frontend_planes(cfg, re_grid: torch.Tensor) -> torch.Tensor:
     """RE grid (B, n_rx, symbols, n_sc_bwp) complex64 -> descrambled LLR
     planes (B, qm, G//qm) f32."""
-    if re_grid.device.type == "cpu":
-        return frontend_planes_plain(cfg, re_grid)
-    fp = cfg.fp
-    _cuda.require(re_grid.is_cuda, f"frontend_planes: tensor on {re_grid.device}")
-    _cuda.require(supported(cfg), "frontend_planes: configuration not supported by the kernel")
-    _cuda.require(re_grid.dtype == torch.complex64, f"frontend_planes: dtype {re_grid.dtype}")
-    _cuda.require(re_grid.dim() == 4 and tuple(re_grid.shape[1:]) == (cfg.n_rx, fp.symbols_per_slot, fp.n_sc),
-                  f"frontend_planes: shape {tuple(re_grid.shape)}, need "
-                  f"(B, {cfg.n_rx}, {fp.symbols_per_slot}, {fp.n_sc})")
-    _cuda.require(re_grid.is_contiguous(), "frontend_planes: grid must be contiguous")
-    B, R = re_grid.shape[0], cfg.n_rx
-    P, qm, M = cfg.n_layers, cfg.qm_rate[0], 12 * cfg.n_prb
-    delta = refsig.dmrs_type1_port_weights(cfg.dmrs_port0 % 4)[1]
-    pilots, dmrs_syms, data_syms, cbits = _device_consts(cfg, re_grid.device)
-    dev = re_grid.device
-    h = torch.empty((B, R, P, M), dtype=torch.complex64, device=dev)
-    nvar = torch.empty((B,), dtype=torch.float32, device=dev)
-    planes = torch.empty((B, qm, cfg.G // qm), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        rc = lib.pusch_frontend(
-            re_grid.data_ptr(), pilots.data_ptr(), dmrs_syms.data_ptr(),
-            data_syms.data_ptr(), cbits.data_ptr(), h.data_ptr(), nvar.data_ptr(),
-            planes.data_ptr(), B, R, P, fp.symbols_per_slot, fp.n_sc, cfg.sc0,
-            cfg.n_prb, delta, len(cfg.dmrs_symbols), len(cfg.data_symbols), qm,
-            cfg.chest_window, _cuda.stream_ptr(dev))
-    _cuda.check(rc, "pusch_frontend")
-    global launches
-    launches += 1
-    return planes
+    if re_grid.is_cuda:
+        return _launch(cfg, re_grid)
+    if re_grid.device.type != "cpu":
+        raise ValueError(f"frontend_planes: tensor on {re_grid.device}, not CUDA or CPU")
+    return frontend_planes_plain(cfg, re_grid)
 
 
 def frontend(cfg, re_grid: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 ``tiny`` (T1) computes ``x * 2`` on one (8, 128) f32 tile in one block;
 ``tiny_grid`` (T2) the same on (8, 8, 128) over a grid of 8 blocks
 (``csrc/tiny.cu``).  Their work is negligible, so their time on the card is
-the fixed cost of one kernel launch.  A CPU tensor takes ``tiny_plain``.
+the fixed cost of one launch through the port's route (``ops/_cuda.py``),
+the route every kernel of the port takes.  A CPU tensor takes
+``tiny_plain``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from . import _cuda
 launches = {"tiny": 0, "tiny_grid": 0}
 
 _SHAPES = {"tiny": (8, 128), "tiny_grid": (8, 8, 128)}
+_BLOCKS = {"tiny": 1, "tiny_grid": 8}      # one (8, 128) tile per block (csrc/tiny.cu)
 
 
 def tiny_plain(x: torch.Tensor) -> torch.Tensor:
@@ -22,28 +25,37 @@ def tiny_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
+def check_args(name: str, shape, dtype: torch.dtype, contiguous: bool) -> None:
+    """Raise ValueError unless the kernel takes a tensor of this shape, type
+    and layout: f32 of the probe's shape, contiguous."""
+    if shape != _SHAPES[name] or dtype is not torch.float32 or not contiguous:
+        raise ValueError(f"{name}: need contiguous f32 {_SHAPES[name]}, got {dtype} "
+                         f"{tuple(shape)}, contiguous={contiguous}")
+
+
 def _launch(name: str, x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return tiny_plain(x)
-    _cuda.require(x.is_cuda, f"{name}: tensor on {x.device}, not CUDA or CPU")
-    _cuda.require(tuple(x.shape) == _SHAPES[name] and x.dtype == torch.float32,
-                  f"{name}: need f32 {_SHAPES[name]}, got {x.dtype} {tuple(x.shape)}")
-    _cuda.require(x.is_contiguous(), f"{name}: x must be contiguous")
+    check_args(name, x.shape, x.dtype, x.is_contiguous())
+    r = _cuda.route()
     out = torch.empty_like(x)
-    n_blocks = x.numel() // (8 * 128)
-    with torch.cuda.device(x.device):
-        rc = _cuda.library().tiny_times_two(x.data_ptr(), out.data_ptr(), n_blocks,
-                                            _cuda.stream_ptr(x.device))
-    _cuda.check(rc, name)
+    dev = x.get_device()
+    rc = r.tiny_times_two(x.data_ptr(), out.data_ptr(), _BLOCKS[name], dev, r.stream(dev))
+    if rc:
+        raise _cuda.error(rc, name)
     launches[name] += 1
     return out
 
 
+def _plain(name: str, x: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cpu":
+        raise ValueError(f"{name}: tensor on {x.device}, not CUDA or CPU")
+    return tiny_plain(x)
+
+
 def tiny(x: torch.Tensor) -> torch.Tensor:
     """T1: (8, 128) f32 -> x * 2, one block."""
-    return _launch("tiny", x)
+    return _launch("tiny", x) if x.is_cuda else _plain("tiny", x)
 
 
 def tiny_grid(x: torch.Tensor) -> torch.Tensor:
     """T2: (8, 8, 128) f32 -> x * 2, a grid of 8 blocks."""
-    return _launch("tiny_grid", x)
+    return _launch("tiny_grid", x) if x.is_cuda else _plain("tiny_grid", x)

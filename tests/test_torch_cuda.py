@@ -187,3 +187,95 @@ def test_tiny_kernels_match_plain(cuda, name, shape):
     assert torch.equal(got, tiny.tiny_plain(x))
     with pytest.raises(ValueError):
         getattr(tiny, name)(torch.randn((4, 128), device=cuda))
+
+
+# --------------------------------------------------------------------------
+# the launch route: PyTorch's current stream, side streams, graph capture
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("where", ["default stream", "side stream", "graph capture"])
+def test_raw_stream_is_the_current_stream(cuda, where):
+    from openairinterface5g_tpu_torch.ops import _cuda
+    r = _cuda.route()
+    seen = []
+
+    def look():
+        seen.append((r.stream(cuda.index), torch.cuda.current_stream(cuda).cuda_stream))
+
+    if where == "default stream":
+        look()
+    elif where == "side stream":
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side):
+            look()
+        assert seen[0][0] == side.cuda_stream
+    else:
+        x = torch.zeros((8, 128), device=cuda)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            look()
+            x.mul_(2)
+        assert seen[0][0] != torch.cuda.default_stream(cuda).cuda_stream
+    [(raw, current)] = seen
+    assert raw == current
+
+
+def _side_stream_case(kernel, dev):
+    """(kernel output, plain output, launch count before and after) of one
+    kernel run on a side stream whose input was produced on that stream."""
+    from openairinterface5g_tpu_torch.ops import tiny
+    rng = np.random.default_rng(11)
+    if kernel in ("tiny", "tiny_grid"):
+        shape = (8, 128) if kernel == "tiny" else (8, 8, 128)
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev) * 3.0
+        n0 = tiny.launches[kernel]
+        return getattr(tiny, kernel)(x), tiny.tiny_plain(x), n0, lambda: tiny.launches[kernel]
+    if kernel == "decode":
+        g = ldpc.build_graph(1, 384)
+        _, llr = _awgn_llr(g, 9, seed=17, snr_db=1.0)
+        x = torch.as_tensor(llr, device=dev) * 1.0
+        n0 = ldpc_decoder.launches["layered_f32"]
+        got = ldpc_decoder.decode(g, x, 6, check_every=1)
+        return got, ldpc_decoder.decode_plain(g, x, 6, check_every=1), n0, \
+            lambda: ldpc_decoder.launches["layered_f32"]
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=16, n_layers=2, n_rx=2)
+    y = _rx_grid(cfg, dev, seed=13)
+    n0 = fe.launches
+    return fe.frontend_planes(cfg, y), fe.frontend_planes_plain(cfg, y), n0, lambda: fe.launches
+
+
+@pytest.mark.parametrize("kernel", ["tiny", "tiny_grid", "decode", "frontend"])
+def test_kernel_on_a_side_stream(cuda, kernel):
+    """T1, T2, K1 and K3 launched under torch.cuda.stream(side) run on that
+    stream, after the op that made their input there."""
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got, ref, n0, count = _side_stream_case(kernel, cuda)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert count() == n0 + 1
+    if kernel == "frontend":
+        assert float((got - ref).abs().max() / ref.abs().max()) < 2e-4
+    elif kernel == "decode":
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("name,shape", [("tiny", (8, 128)), ("tiny_grid", (8, 8, 128))])
+def test_tiny_kernels_in_a_cuda_graph(cuda, name, shape):
+    """T1/T2 captured in a CUDA graph and replayed on new input give x * 2."""
+    from openairinterface5g_tpu_torch.ops import tiny
+    fn = getattr(tiny, name)
+    x = torch.randn(shape, device=cuda)
+    fn(x)                                       # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x)
+    for _ in range(2):
+        x.copy_(torch.randn(shape, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, x * 2)
