@@ -12,7 +12,9 @@ Drives the port's two paths with every hand-written CUDA kernel:
     int8 and bf16, K2), and the launch probes T1/T2 (``ops.tiny``);
   * slice 3, the launch route every kernel takes (``ops/_cuda.py``): T1/T2
     against ``torch.mul(x, 2)`` in turns, the host cost of each wrapper,
-    each kernel's device-only time, and the route's raw stream handle.
+    each kernel's device-only time, and the route's raw stream handle;
+  * slice 4, K1's layered kernel redesigned (``csrc/ldpc_layered.cu``):
+    where its time goes at the main path's tensors.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -24,7 +26,9 @@ Phases, one line or more each:
      batches, before any profiler session) and torch.mul(x, 2)'s host µs
      beside them; then the kernels held against their plain versions and
      timed at the main path's tensors (CUDA events, host enqueue per call,
-     profiler kernel rows)
+     profiler kernel rows); then K1's split there: no iteration (fill,
+     one check, bits), the first iteration, a later one, the checks
+     (tools/bench_ldpc_layered.py)
   5. the decoder's variants through decode() (slice 1's layered f32 with f32
      and bf16 input, and slice 2's), 4 dB, 8 iterations, BG1 Z=384 x 208
      and BG2 Z=104 x 64, check_every 0 and 1: kernel bits == plain bits ==
@@ -55,11 +59,10 @@ import time
 
 import torch
 
-from openairinterface5g_tpu_torch.coding import ldpc
 from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
-from openairinterface5g_tpu_torch.tools import bench_launch
+from openairinterface5g_tpu_torch.tools import bench_launch, bench_ldpc_layered
 
 SEED = 1234
 B = bench_launch.MAIN_PATH_B            # slots per batch
@@ -68,20 +71,25 @@ K3_TOL = 2e-4             # max |kernel - plain| / max |plain| of the LLR planes
 N_TIMED = bench_launch.MAIN_PATH_BATCHES  # batches in a slots/s window
 N_WINDOWS = 5             # windows of a host-clock or slots/s median
 PROBE_WINDOWS = bench_launch.WINDOWS    # windows of the T1/T2/torch.mul turns
-SNR_DB = 4.0              # decoder phases: BPSK over AWGN at this Es/N0
 DECODER_SIZES = ((1, 384, 208), (2, 104, 64))   # (bg, Z, code blocks)
 
 # Roofline of one H100 SXM (NVIDIA data sheet, at 700 W): HBM bytes/s and
-# f32 operations/s outside the tensor cores.  The decoders compute every operation on 32-bit
-# lanes (bf16 in f32, int8 messages in int32), so f32's rate is their peak.
+# f32 operations/s outside the tensor cores, which counts an FMA as two.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The decoders' operations (compare, select, add, xor on 32-bit lanes: bf16
+# is computed in f32, int8 messages in int32) are one instruction each and
+# fuse into no FMA, so they issue at most once per lane and clock:
+# 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 per second.
+MIN_SUM_OPS_PER_S = 33.5e12
 # operations per edge, lane and iteration of min-sum: v = t - o, |v|, three
-# for min1/min2, sign xor, the excluded-min compare and select, scale, the
-# sign select, and the two operations of the total update (flooding: one
-# add in the variable-node pass and no update); per edge and lane of a
-# syndrome check: load compare and xor
-OPS_PER_EDGE_ITER = 12
+# for min1/min2, sign xor, the excluded-min compare and select, the sign
+# select, and the two operations of the total update (flooding: one add in
+# the variable-node pass and no update); per row, lane and iteration: the
+# scale of m1 and of m2; per edge and lane of a syndrome check: load
+# compare and xor
+OPS_PER_EDGE_ITER = 11
+OPS_PER_ROW_ITER = 2
 OPS_PER_EDGE_CHECK = 2
 
 # (label, kernel name, schedule, message type, input type); the first row of
@@ -96,12 +104,13 @@ VARIANTS = (
     ("bf16 flooding", "flooding_bf16", "flooding", torch.bfloat16, torch.float32),
     ("K2 bf16 layered", "layered_bf16", "layered", torch.bfloat16, torch.float32),
 )
-K1_SRC = "openairinterface5g_tpu_torch/csrc/ldpc_decoder.cu"
+K1_LAYERED = "openairinterface5g_tpu_torch/csrc/ldpc_layered.cu"
+K1_FLOODING = "openairinterface5g_tpu_torch/csrc/ldpc_decoder.cu"
 K1_TPU = "openairinterface5g_tpu/ops/ldpc_pallas.py:61"
 KERNEL_SOURCES = {
-    "layered_f32": (K1_SRC, K1_TPU), "flooding_f32": (K1_SRC, K1_TPU),
-    "layered_int8": (K1_SRC, K1_TPU), "flooding_int8": (K1_SRC, K1_TPU),
-    "flooding_bf16": (K1_SRC, K1_TPU),
+    "layered_f32": (K1_LAYERED, K1_TPU), "flooding_f32": (K1_FLOODING, K1_TPU),
+    "layered_int8": (K1_LAYERED, K1_TPU), "flooding_int8": (K1_FLOODING, K1_TPU),
+    "flooding_bf16": (K1_FLOODING, K1_TPU),
     "layered_bf16": ("openairinterface5g_tpu_torch/csrc/ldpc_decoder_bf16.cu",
                      "openairinterface5g_tpu/ops/ldpc_pallas.py:383"),
     "pusch_frontend": ("openairinterface5g_tpu_torch/csrc/pusch_frontend.cu",
@@ -111,7 +120,10 @@ KERNEL_SOURCES = {
 }
 # names of each kernel's own CUDA kernels, as torch.profiler's rows show them
 DEVICE_KERNELS = {
-    "layered_bf16": ("ldpc_bf16_kernel",),     # K1's variants: ("ldpc_kernel",)
+    "layered_f32": ("ldpc_layered_kernel",), "layered_int8": ("ldpc_layered_kernel",),
+    "flooding_f32": ("ldpc_flooding_kernel",), "flooding_int8": ("ldpc_flooding_kernel",),
+    "flooding_bf16": ("ldpc_flooding_kernel",),
+    "layered_bf16": ("ldpc_bf16_kernel",),
     "pusch_frontend": ("estimate_kernel", "equalize_llr_kernel"),
     "tiny": ("times_two_kernel",), "tiny_grid": ("times_two_kernel",),
 }
@@ -126,57 +138,36 @@ def _host_us(fn, calls: int) -> float:
     return statistics.median(bench_launch.host_us(fn, calls) for _ in range(N_WINDOWS))
 
 
-def _profiled_rows(fn, calls: int, keys: tuple) -> dict:
-    """key -> (kernel rows' summed µs, launches) of `calls` calls of fn, in
-    the active step of a profile whose first step is the profiler's own
-    warm-up: kernels launched in the first milliseconds of a profile can
-    go unrecorded."""
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA],
-                                schedule=schedule) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    rows = prof.key_averages()
-    return {k: (sum(e.self_device_time_total for e in rows if k in e.key),
-                sum(e.count for e in rows if k in e.key)) for k in keys}
+def _device_ms(name: str, fn, calls: int) -> float:
+    """Device ms per call of fn: the profiler rows of kernel `name`'s own
+    CUDA kernels (tools/bench_ldpc_layered.py::device_ms)."""
+    return bench_ldpc_layered.device_ms(fn, calls, DEVICE_KERNELS[name])
 
 
-def _device_ms(name: str, fn, calls: int, attempts: int = 3) -> float:
-    """Device ms per call of fn: for each of kernel `name`'s own CUDA
-    kernels, the mean duration of its torch.profiler rows over `calls`
-    calls, summed over the kernels one call launches.  A profile that
-    recorded under half the launches is taken again."""
-    fn()
-    torch.cuda.synchronize()
-    keys = DEVICE_KERNELS.get(name, ("ldpc_kernel",))
-    for _ in range(attempts):
-        found = _profiled_rows(fn, calls, keys)
-        if all(n >= calls // 2 for _, n in found.values()):
-            return sum(us / n for us, n in found.values()) / 1e3
-    raise AssertionError(f"{name}: profiler recorded launches {found} in {calls} calls")
-
-
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def _bound(n_bytes: float, n_ops: float,
+           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _decoder_bound(g, x: torch.Tensor, iters: torch.Tensor,
                    check_every: int) -> tuple[float, str]:
     """K1/K2's bound for one decode of `x`: the input read once, bits and
-    flags written once, and the operations of the iterations each code
-    block actually ran (`iters`, from the plain version's early stop)."""
+    flags written once, and the operations of the iterations and checks
+    each code block actually ran (`iters`, from the plain version's early
+    stop), with one more check for the ok flag only where the last
+    iteration ran none (a check of the final totals gives the flag)."""
     E = int(g.evalid.sum())
     n_bytes = x.numel() * x.element_size() + x.shape[0] * (g.K + 1)
     it = float(iters.sum())
-    n_checks = float((iters // check_every).sum()) if check_every else 0.0
-    n_ops = E * g.Z * (OPS_PER_EDGE_ITER * it + OPS_PER_EDGE_CHECK * (n_checks + x.shape[0]))
-    return _bound(n_bytes, n_ops)
+    if check_every:
+        n_checks = float((iters // check_every).sum() + (iters % check_every != 0).sum())
+    else:
+        n_checks = float(x.shape[0])
+    n_ops = g.Z * (it * (OPS_PER_EDGE_ITER * E + OPS_PER_ROW_ITER * g.rows)
+                   + OPS_PER_EDGE_CHECK * E * n_checks)
+    return _bound(n_bytes, n_ops, MIN_SUM_OPS_PER_S)
 
 
 def _k3_ops(cfg) -> int:
@@ -259,19 +250,6 @@ def phase_frontend(dev, gen) -> None:
                   fe.frontend_planes_plain(cfg, y))
 
 
-def _awgn_code_blocks(bg, Z, n_cb, dev, gen):
-    """(graph, sent info bits, f32 LLRs) of random code blocks, BPSK over
-    AWGN at SNR_DB, punctured systematic head set to 0."""
-    g = ldpc.build_graph(bg, Z)
-    info = torch.randint(0, 2, (n_cb, g.K), generator=gen, device=dev, dtype=torch.int8)
-    cw = ldpc.encode(g, info).to(torch.float32)
-    sigma = 10 ** (-SNR_DB / 20)
-    y = (1 - 2 * cw) + sigma * torch.randn(cw.shape, generator=gen, device=dev)
-    llr = 2 * y / sigma ** 2
-    llr[:, : 2 * Z] = 0
-    return g, info, llr
-
-
 def phase_main_path(dev, gen, card: str) -> dict:
     rcv = bench_launch.receiver(dev, gen)
     cfg, tb, rx, re_grid, g, planes, llr = (rcv.cfg, rcv.tb, rcv.rx, rcv.re_grid, rcv.graph,
@@ -347,8 +325,14 @@ def phase_main_path(dev, gen, card: str) -> dict:
         print(f"{name} at the main path's tensors: {times[name][0]:.4f} ms by CUDA events, "
               f"{device[name]:.4f} ms on the device (profiler), wrapper enqueue "
               f"{host[name]:.2f} us per call")
+    split = bench_ldpc_layered.split(g, llr)
+    print(f"K1 split at the main path's tensors, device ms (profiler rows): no iteration "
+          f"(fill, one check, bits) {split['no_iteration']:.4f}, first iteration "
+          f"{split['first_iteration']:.4f}, one later iteration {split['iteration']:.4f}, "
+          f"checks beyond the final one {split['checks']:.4f} ("
+          + ", ".join(f"{k}: {v:.4f}" for k, v in split["times"].items()) + ")")
     return {"launches": launches, "errs": errs, "times": times, "bounds": bounds,
-            "device": device, "host": host}
+            "device": device, "host": host, "split": split}
 
 
 def phase_decoder(dev, gen) -> dict:
@@ -357,7 +341,8 @@ def phase_decoder(dev, gen) -> dict:
     launch counts; then times at BG1 Z=384 x 208."""
     for k in ldpc_decoder.launches:
         ldpc_decoder.launches[k] = 0
-    cases = [_awgn_code_blocks(bg, Z, n_cb, dev, gen) for bg, Z, n_cb in DECODER_SIZES]
+    cases = [bench_ldpc_layered.awgn_code_blocks(bg, Z, n_cb, dev, gen)
+             for bg, Z, n_cb in DECODER_SIZES]
     errs, iters = {}, {}                # (label, check_every) -> at BG1 Z=384 x 208
     for i, (g, info, llr) in enumerate(cases):
         for label, name, schedule, msg_dtype, in_dtype in VARIANTS:
@@ -404,7 +389,7 @@ def phase_decoder(dev, gen) -> dict:
                                        0 if name == "layered_bf16" else ce)   # K2: no checks
             row[ce] = {"ms": ms, "plain_ms": plain_ms, "bound": (bound, by),
                        "err": errs[label, ce], "mean_iters": float(it.float().mean()),
-                       "device_ms": _device_ms(name, kernel, 3), "host_us": _host_us(kernel, 20)}
+                       "device_ms": _device_ms(name, kernel, 5), "host_us": _host_us(kernel, 20)}
             print(f"{label} BG{g.bg} Z={g.Z} x{x.shape[0]} check_every={ce}: kernel {ms:.4f} ms, "
                   f"device {row[ce]['device_ms']:.4f} ms, enqueue {row[ce]['host_us']:.2f} us, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), "
@@ -539,7 +524,8 @@ def main() -> None:
         ms, plain_ms = main_path["times"][name]
         kernels.append(_entry(name, main_path["launches"][name], main_path["errs"][name],
                               ms, plain_ms, main_path["bounds"][name],
-                              main_path["device"][name], main_path["host"][name]))
+                              main_path["device"][name], main_path["host"][name],
+                              **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":
             continue

@@ -48,8 +48,13 @@ _F = ctypes.c_float
 # C signatures of the entry points: name -> argtypes (restype is int).  Every
 # entry point ends in (device index, stream).
 _SIGNATURES = {
-    "ldpc_decode": (
-        _P, _I, _I, _I,                # llr, in_kind, msg_kind, flooding
+    "ldpc_layered_decode": (
+        _P, _I, _I,                    # llr, in_kind, msg_kind
+        _P, _P, _P, _P,                # bits, ok, state scratch, graph table
+        _I, _I, _I, _I, _I, _I, _I,    # B, layers, rows, cols, E, Z, K
+        _I, _I, _F, _I, _P),           # n_iters, check_every, alpha, device, stream
+    "ldpc_flooding_decode": (
+        _P, _I, _I,                    # llr, in_kind, msg_kind
         _P, _P, _P,                    # bits, ok, c2v scratch
         _P, _P, _P, _P, _P,            # row_ptr, ecol, eshift, col_ptr, col_edge
         _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K

@@ -6,9 +6,11 @@ messages, f32 or bf16 input, early stop every ``check_every`` iterations.
 ``decode`` prepares the input as decode_pallas does and, for a CUDA
 tensor, launches
 
-  * K1, ``csrc/ldpc_decoder.cu`` (``_build_decoder``), for every variant
-    but one: layered or flooding with f32 messages, layered or flooding
-    with int8 messages (int32 totals), flooding with bf16 messages;
+  * K1 (``_build_decoder``) for every variant but one:
+    ``csrc/ldpc_layered.cu`` for layered with f32 or int8 messages (the
+    main path), which keeps compressed check-node state per row and lane
+    and takes the rows in layers of orthogonal rows (``layer_groups``);
+    ``csrc/ldpc_decoder.cu`` for flooding with f32, int8 or bf16 messages;
   * K2, ``csrc/ldpc_decoder_bf16.cu`` (``_build_decoder_bf16``), for bf16
     messages under the layered schedule, as decode_pallas dispatches it.
 
@@ -116,6 +118,48 @@ def _edge_tensors(bg: int, Z: int, device: torch.device):
     ts = tuple(torch.as_tensor(a, device=device)
                for a in (*_edges_np(bg, Z), *_col_edges_np(bg, Z)))
     return ts, tuple(t.data_ptr() for t in ts)
+
+
+@functools.lru_cache(maxsize=32)
+def layer_groups(bg: int, Z: int) -> tuple:
+    """The layers of the layered kernel: ((first row, rows), ...), each a
+    run of consecutive rows of which no two share a column, taken greedily
+    in row order (BG1: 46 rows in 32 layers, BG2: 42 in 28, at every Z).
+    Rows of one layer update disjoint totals, so processing them between
+    the same two barriers changes no bit."""
+    row_ptr, col, _ = _edges_np(bg, Z)
+    groups, used = [], set()
+    for r in range(len(row_ptr) - 1):
+        cs = set(col[row_ptr[r]:row_ptr[r + 1]].tolist())
+        if groups and not cs & used:
+            groups[-1][1] += 1
+            used |= cs
+        else:
+            groups.append([r, 1])
+            used = cs
+    return tuple(map(tuple, groups))
+
+
+# the row degrees of the NR base graphs, each of which the layered kernel
+# unrolls exactly (csrc/ldpc_layered.cu::row_update)
+LAYERED_DEGREES = frozenset((3, 4, 5, 6, 7, 8, 9, 10, 19))
+
+
+@functools.lru_cache(maxsize=32)
+def _layered_tables(bg: int, Z: int, device: torch.device):
+    """The layered kernel's graph table on the device (csrc/ldpc_layered.cu):
+    per layer first row | rows << 16, per row first edge | degree << 16,
+    per edge col * Z | shift << 16, int32; its data pointer and the number
+    of layers.  Raises ValueError for a row degree outside LAYERED_DEGREES."""
+    row_ptr, col, shift = _edges_np(bg, Z)
+    bad = set(np.diff(row_ptr).tolist()) - LAYERED_DEGREES
+    if bad:
+        raise ValueError(f"BG{bg} Z={Z}: row degrees {sorted(bad)} have no layered kernel case")
+    layers = np.asarray([r | n << 16 for r, n in layer_groups(bg, Z)], np.int64)
+    rows = row_ptr[:-1].astype(np.int64) | np.diff(row_ptr).astype(np.int64) << 16
+    edges = col.astype(np.int64) * Z | shift.astype(np.int64) << 16
+    t = torch.as_tensor(np.concatenate([layers, rows, edges]).astype(np.int32), device=device)
+    return t, t.data_ptr(), len(layers)
 
 
 @functools.lru_cache(maxsize=32)
@@ -338,20 +382,28 @@ def _launch(name: str, g: LDPCGraph, llr: torch.Tensor, n_iters: int, alpha: flo
     E = tables[1].numel()
     bits = torch.empty((B, g.K), dtype=torch.int8, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
     if msg_dtype is torch.bfloat16:      # bf16 paths scale by alpha in bf16
         alpha = _round_bf16(alpha)
     r = _cuda.route()
     if name == "layered_bf16":
+        c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
         rc = r.ldpc_decode_bf16(
             x.data_ptr(), bits.data_ptr(), ok.data_ptr(), c2v.data_ptr(), *ptrs[:3],
             B, g.rows, g.cols, E, g.Z, g.K, n_iters, alpha, index, r.stream(index))
+    elif name.startswith("layered"):
+        _, table_ptr, n_layers = _layered_tables(g.bg, g.Z, dev)
+        # per (row, lane): two magnitudes (8 B) and the sign and d* word (4 B)
+        state = torch.empty((3 * B * g.rows * g.Z,), dtype=torch.int32, device=dev)
+        rc = r.ldpc_layered_decode(
+            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype], bits.data_ptr(),
+            ok.data_ptr(), state.data_ptr(), table_ptr, B, n_layers, g.rows, g.cols, E,
+            g.Z, g.K, n_iters, check_every, alpha, index, r.stream(index))
     else:
-        rc = r.ldpc_decode(
-            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype],
-            int(name.startswith("flooding")), bits.data_ptr(), ok.data_ptr(),
-            c2v.data_ptr(), *ptrs, B, g.rows, g.cols, E, g.Z, g.K, n_iters,
-            check_every, alpha, index, r.stream(index))
+        c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
+        rc = r.ldpc_flooding_decode(
+            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype], bits.data_ptr(),
+            ok.data_ptr(), c2v.data_ptr(), *ptrs, B, g.rows, g.cols, E, g.Z, g.K,
+            n_iters, check_every, alpha, index, r.stream(index))
     if rc:
         raise _cuda.error(rc, f"ldpc decode ({name})")
     launches[name] += 1

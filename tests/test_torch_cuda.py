@@ -79,14 +79,27 @@ def test_frontend_kernel_rejects_bad_input(cuda):
         fe.frontend_planes(cfg, y.transpose(2, 3).contiguous().transpose(2, 3))
 
 
-def _awgn_llr(g, n_cb, seed, snr_db):
+def _awgn_llr(g, n_cb, seed, snr_db, case="awgn"):
+    """(info, f32 LLRs) of random code blocks, BPSK over AWGN, punctured
+    head at 0.  snr_db: one Es/N0 or a (low, high) ramp across the batch,
+    so that blocks stop at different iterations.  case "ties": quantized to
+    a few values; "zeros": every second block all zero and -0.0 in some
+    others; "all zero": every LLR +0.0."""
     rng = np.random.default_rng(seed)
     info = rng.integers(0, 2, (n_cb, g.K)).astype(np.int8)
     cw = ldpc.encode(g, torch.as_tensor(info)).numpy().astype(np.float32)
-    sigma = 10 ** (-snr_db / 20)
+    db = np.linspace(*snr_db, n_cb)[:, None] if isinstance(snr_db, tuple) else snr_db
+    sigma = np.float32(10 ** (-np.asarray(db) / 20))
     y = (1 - 2 * cw) + sigma * rng.standard_normal(cw.shape).astype(np.float32)
-    llr = 2 * y / sigma ** 2
+    llr = (2 * y / sigma ** 2).astype(np.float32)
     llr[:, : 2 * g.Z] = 0
+    if case == "ties":
+        llr = np.rint(llr / 4) * 4
+    elif case == "zeros":
+        llr[1::2] = 0.0
+        llr[::3, 5::7] = -0.0
+    elif case == "all zero":
+        llr = np.zeros_like(llr)
     return info, llr
 
 
@@ -136,14 +149,16 @@ def test_main_path_through_both_kernels(cuda):
     assert torch.equal(out["tb_bits"], tb)
 
 
-# the variants decode() takes beside the main path's: (schedule, message
-# type, input type); bf16 + layered is K2
-VARIANTS = [("flooding", torch.float32, torch.float32), ("flooding", torch.float32, torch.bfloat16),
+# every variant decode() takes: (schedule, message type, input type); bf16
+# + layered is K2
+VARIANTS = [("layered", torch.float32, torch.float32), ("layered", torch.float32, torch.bfloat16),
+            ("flooding", torch.float32, torch.float32), ("flooding", torch.float32, torch.bfloat16),
             ("layered", torch.int8, torch.float32), ("flooding", torch.int8, torch.float32),
             ("flooding", torch.bfloat16, torch.float32), ("layered", torch.bfloat16, torch.float32)]
 
 
-@pytest.mark.parametrize("bg,Z,n_cb", [(2, 64, 5), (1, 384, 9), (1, 13, 4)])
+# (1, 384, 208): the main path's width, one batch's code blocks
+@pytest.mark.parametrize("bg,Z,n_cb", [(2, 64, 5), (1, 384, 9), (1, 13, 4), (1, 384, 208)])
 @pytest.mark.parametrize("schedule,msg_dtype,in_dtype", VARIANTS)
 @pytest.mark.parametrize("check_every", [0, 2])
 def test_decoder_variant_kernel_matches_plain(cuda, bg, Z, n_cb, schedule, msg_dtype,
@@ -163,6 +178,32 @@ def test_decoder_variant_kernel_matches_plain(cuda, bg, Z, n_cb, schedule, msg_d
     assert torch.equal(okk, okp)
     for i in np.nonzero(okk.cpu().numpy())[0]:
         np.testing.assert_array_equal(bk[i].cpu().numpy(), info[i])
+
+
+# K1's layered kernel (csrc/ldpc_layered.cu): (message type, input type)
+LAYERED = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+           (torch.int8, torch.float32)]
+
+
+@pytest.mark.parametrize("case", ["awgn", "ties", "zeros", "all zero"])
+@pytest.mark.parametrize("msg_dtype,in_dtype", LAYERED)
+@pytest.mark.parametrize("n_iters,check_every", [(1, 0), (1, 1), (6, 0), (8, 1), (8, 2), (8, 3)])
+def test_layered_kernel_matches_plain(cuda, case, msg_dtype, in_dtype, n_iters, check_every):
+    """Bits and ok flags equal decode_plain's, for every input type, early
+    stop and first-iteration case, with ties in |v|, -0.0 and zeros."""
+    g = ldpc.build_graph(2, 104)
+    _, llr = _awgn_llr(g, 16, seed=7, snr_db=(0.0, 4.0), case=case)
+    x = torch.as_tensor(llr, device=cuda).to(in_dtype)
+    name = ldpc_decoder.kernel_name("layered", msg_dtype)
+    n0 = ldpc_decoder.launches[name]
+    kw = dict(msg_dtype=msg_dtype, check_every=check_every)
+    bk, okk = ldpc_decoder.decode(g, x, n_iters, **kw)
+    bp, okp, iters = ldpc_decoder.decode_plain(g, x, n_iters, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    assert ldpc_decoder.launches[name] == n0 + 1
+    assert torch.equal(bk, bp) and torch.equal(okk, okp)
+    if case == "awgn" and check_every == 1 and n_iters == 8:
+        assert len(set(iters.tolist())) > 1          # blocks stop at different iterations
 
 
 def test_int8_kernel_saturates(cuda):

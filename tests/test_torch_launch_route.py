@@ -196,11 +196,11 @@ def test_tiny_launch_path(route, name, shape, n_blocks):
 
 
 @pytest.mark.parametrize("schedule,msg_dtype,in_dtype,entry,codes", [
-    ("layered", torch.float32, torch.float32, "ldpc_decode", (0, 0, 0)),
-    ("layered", torch.float32, torch.bfloat16, "ldpc_decode", (1, 0, 0)),
-    ("flooding", torch.float32, torch.float32, "ldpc_decode", (0, 0, 1)),
-    ("layered", torch.int8, torch.float32, "ldpc_decode", (2, 1, 0)),
-    ("flooding", torch.bfloat16, torch.float32, "ldpc_decode", (1, 2, 1)),
+    ("layered", torch.float32, torch.float32, "ldpc_layered_decode", (0, 0)),
+    ("layered", torch.float32, torch.bfloat16, "ldpc_layered_decode", (1, 0)),
+    ("flooding", torch.float32, torch.float32, "ldpc_flooding_decode", (0, 0)),
+    ("layered", torch.int8, torch.float32, "ldpc_layered_decode", (2, 1)),
+    ("flooding", torch.bfloat16, torch.float32, "ldpc_flooding_decode", (1, 2)),
     ("layered", torch.bfloat16, torch.float32, "ldpc_decode_bf16", None),
 ])
 def test_decode_launch_path(route, schedule, msg_dtype, in_dtype, entry, codes):
@@ -218,10 +218,14 @@ def test_decode_launch_path(route, schedule, msg_dtype, in_dtype, entry, codes):
     if codes is None:                                   # K2: no in/msg kinds, no check_every
         assert args[7:13] == (3, g.rows, g.cols, E, g.Z, g.K) and args[13] == 6
         assert args[14] == pytest.approx(alpha, rel=1e-7)
+    elif schedule == "layered":                         # 28 layers of BG2's 42 rows
+        assert args[1:3] == codes
+        assert args[7:16] == (3, 28, g.rows, g.cols, E, g.Z, g.K, 6, 1)
+        assert args[16] == pytest.approx(alpha, rel=1e-7)
     else:
-        assert args[1:4] == codes
-        assert args[12:20] == (3, g.rows, g.cols, E, g.Z, g.K, 6, 1)
-        assert args[20] == pytest.approx(alpha, rel=1e-7)
+        assert args[1:3] == codes
+        assert args[11:19] == (3, g.rows, g.cols, E, g.Z, g.K, 6, 1)
+        assert args[19] == pytest.approx(alpha, rel=1e-7)
     assert ldpc_decoder.launches[name] == n0 + 1
 
 

@@ -54,3 +54,10 @@ def test_tiny_plain(fn, shape):
     assert torch.equal(fn(x), x * 2)
     assert torch.equal(tiny.tiny_plain(x), x * 2)
     assert tiny.launches == n0
+
+
+def test_bench_ldpc_layered_needs_cuda(monkeypatch):
+    from openairinterface5g_tpu_torch.tools import bench_ldpc_layered
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        bench_ldpc_layered.run()
