@@ -14,19 +14,25 @@ Drives the port's two paths with every hand-written CUDA kernel:
     against ``torch.mul(x, 2)`` in turns, the host cost of each wrapper,
     each kernel's device-only time, and the route's raw stream handle;
   * slice 4, K1's layered kernel redesigned (``csrc/ldpc_layered.cu``):
-    where its time goes at the main path's tensors.
+    where its time goes at the main path's tensors;
+  * slice 5, K3 redesigned (``csrc/pusch_frontend.cu``): one launch of a
+    thread-block cluster per slot, the channel estimate kept on chip; its
+    tile edges, B = 1, B = 40 and 16 RX held against the plain version.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
   2. build every kernel from csrc/ with nvcc (one process per source)
-  3. K3 (fused frontend) against its plain PyTorch version, 20 and 273 PRB
+  3. K3 (fused frontend) against its plain PyTorch version: 20 PRB at B = 8,
+     then ops/pusch_frontend_cases.py's CARD_CASES (the tiles' edges at B = 3,
+     the main path's configuration at B = 1 and 40, 16 and 32 RX in antenna
+     groups), each case's error
   4. slice 1 main path: pusch_tx -> channel -> pusch_rx; every TB must pass
      CRC and equal the sent bits, both kernels must have launched; then
      slots/s and the host enqueue per batch (medians of 5 windows of 20
      batches, before any profiler session) and torch.mul(x, 2)'s host µs
      beside them; then the kernels held against their plain versions and
      timed at the main path's tensors (CUDA events, host enqueue per call,
-     profiler kernel rows); then K1's split there: no iteration (fill,
+     profiler kernel rows; K3's share of its bound); then K1's split there: no iteration (fill,
      one check, bits), the first iteration, a later one, the checks
      (tools/bench_ldpc_layered.py)
   5. the decoder's variants through decode() (slice 1's layered f32 with f32
@@ -62,7 +68,8 @@ import torch
 from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
-from openairinterface5g_tpu_torch.tools import bench_launch, bench_ldpc_layered
+from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
+from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
 
 SEED = 1234
 B = bench_launch.MAIN_PATH_B            # slots per batch
@@ -124,7 +131,7 @@ DEVICE_KERNELS = {
     "flooding_f32": ("ldpc_flooding_kernel",), "flooding_int8": ("ldpc_flooding_kernel",),
     "flooding_bf16": ("ldpc_flooding_kernel",),
     "layered_bf16": ("ldpc_bf16_kernel",),
-    "pusch_frontend": ("estimate_kernel", "equalize_llr_kernel"),
+    "pusch_frontend": ("frontend_kernel",),
     "tiny": ("times_two_kernel",), "tiny_grid": ("times_two_kernel",),
 }
 
@@ -171,14 +178,15 @@ def _decoder_bound(g, x: torch.Tensor, iters: torch.Tensor,
 
 
 def _k3_ops(cfg) -> int:
-    """Arithmetic operations of one K3 call (B slots), counted from the
-    kernel body in csrc/pusch_frontend.cu: a complex multiply is 6, a
-    complex add 2, |z|^2 3, a divide, select or fabs 1; index arithmetic is
-    not counted."""
+    """Arithmetic operations of one K3 call (B slots): the work of the
+    function (estimate per antenna and pilot, then per data RE), the same
+    for any kernel that computes it, so a parent and a change share one
+    bound.  A complex multiply is 6, a complex add 2, |z|^2 3, a divide,
+    select or fabs 1; index arithmetic is not counted."""
     P, R, qm = cfg.n_layers, cfg.n_rx, cfg.qm_rate[0]
     n_dmrs, n_data, w = len(cfg.dmrs_symbols), len(cfg.data_symbols), cfg.chest_window
     n_pil, M = 6 * cfg.n_prb, 12 * cfg.n_prb
-    # estimate_kernel, per antenna and pilot: LS and its sum per DMRS symbol
+    # the estimate, per antenna and pilot: LS and its sum per DMRS symbol
     # (8; 1 layer: the adjacent-pilot noise term, 12 more) and the mean (2);
     # 2 layers: the OCC split (8) and the pair-difference noise term on
     # every second pilot (20); per port the replicate-padded window sum
@@ -187,7 +195,7 @@ def _k3_ops(cfg) -> int:
     per_pilot = n_dmrs * (8 + (12 if P == 1 else 0)) + 2 + (18 if P == 2 else 0)
     per_pilot += P * (2 * w + 2) if w > 1 else 0
     est = R * (n_pil * per_pilot + P * M * 2)
-    # equalize_llr_kernel, per data RE: per antenna the matched filter and
+    # equalization, per data RE: per antenna the matched filter and
     # gain of each layer (12), 2 layers the cross term (8) too; the closed-
     # form 2x2 MMSE (38); per layer the qm max-log LLRs and their
     # descrambling selects
@@ -215,19 +223,6 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def _rx_grid(cfg, dev, gen, noise=0.05):
-    """A received RE grid: random TBs through pusch_tx_grid, a fixed random
-    2x2 mixing channel and complex AWGN."""
-    tb = torch.randint(0, 2, (B, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
-    grid_re, _ = pusch.pusch_tx_grid(cfg, tb)
-    h = torch.complex(torch.randn((cfg.n_rx, cfg.n_layers), generator=gen, device=dev),
-                      torch.randn((cfg.n_rx, cfg.n_layers), generator=gen, device=dev)) / 2 ** 0.5
-    y = torch.einsum("rl,blsm->brsm", h, grid_re)
-    n = torch.complex(torch.randn(y.shape, generator=gen, device=dev),
-                      torch.randn(y.shape, generator=gen, device=dev))
-    return (y + noise * n).contiguous()
-
-
 def _k3_check(tag: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     """K3 output against its plain version: returns max |kernel - plain|;
     raises on a shape, a non-finite value or a relative error >= K3_TOL."""
@@ -243,10 +238,12 @@ def _k3_check(tag: str, got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def phase_frontend(dev, gen) -> None:
-    for n_prb in (20, 273):
-        cfg = pusch.PuschConfig(mu=1, n_prb=n_prb, mcs=16, n_layers=2, n_rx=2)
-        y = _rx_grid(cfg, dev, gen)
-        _k3_check(f"{n_prb} PRB B={B}", fe.frontend_planes(cfg, y),
+    cases = [(dict(n_prb=20, mcs=16, n_layers=2, n_rx=2), B), *CARD_CASES]
+    for kw, slots in cases:
+        cfg = pusch.PuschConfig(mu=1, **kw)
+        y = bench_frontend.grid(cfg, dev, gen, slots)
+        tag = " ".join(f"{k}={v}" for k, v in kw.items())
+        _k3_check(f"{tag} B={slots}", fe.frontend_planes(cfg, y),
                   fe.frontend_planes_plain(cfg, y))
 
 
@@ -319,6 +316,10 @@ def phase_main_path(dev, gen, card: str) -> dict:
             re_grid.numel() * re_grid.element_size() + planes.numel() * planes.element_size(),
             _k3_ops(cfg)),
     }
+    k3_bound = bounds["pusch_frontend"][0]
+    print(f"K3 at the main path's tensors: {device['pusch_frontend']:.4f} ms on the device "
+          f"(profiler), bound {k3_bound:.4f} ms ({bounds['pusch_frontend'][1]}): "
+          f"{100 * k3_bound / device['pusch_frontend']:.1f} % of the bound")
     print(f"main path decode: {B * p.C} code blocks ran {float(iters.float().mean()):.3f} "
           f"iterations each on average (plain version's early stop, check_every=1)")
     for name in times:

@@ -11,6 +11,8 @@
 //   * SmemLimit raises a kernel's dynamic shared-memory limit only when a
 //     launch needs more than every earlier launch on that device, so the
 //     main path calls cudaFuncSetAttribute once per kernel, not per launch.
+//   * ClusterLimit allows a kernel clusters above the portable 8 blocks
+//     (the H100 runs 16), once per kernel and device.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,6 +68,28 @@ class SmemLimit {
 
  private:
   std::atomic<int> limit_[kMaxDevices] = {};
+  std::mutex mu_;
+};
+
+// Allows one kernel thread-block clusters of up to 16 blocks on each
+// device, setting the attribute once per device.  Declare one as a
+// function-local static per kernel and call allow() with the current device
+// set, before a cluster launch or an occupancy query above 8 blocks.
+class ClusterLimit {
+ public:
+  cudaError_t allow(const void* kernel, int device) {
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (set_[device].load(std::memory_order_acquire)) return cudaSuccess;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (set_[device].load(std::memory_order_relaxed)) return cudaSuccess;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) set_[device].store(true, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<bool> set_[kMaxDevices] = {};
   std::mutex mu_;
 };
 

@@ -65,11 +65,15 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
         _I, _F, _I, _P),               # n_iters, alpha (bf16-rounded), device, stream
     "pusch_frontend": (
-        _P, _P, _P, _P, _P,            # y, pilots, dmrs_syms, data_syms, cbits
-        _P, _P, _P,                    # h scratch, nvar scratch, planes
+        _P, _P, _P, _P,                # y, pilots, packed scrambling signs, planes
         _I, _I, _I, _I, _I, _I,        # B, R, P, n_sym, n_sc, a0
         _I, _I, _I, _I, _I, _I,        # n_prb, delta, n_dmrs, n_data, qm, window
+        _I, _I,                        # DMRS and data symbol masks
+        _I, _I, _I, _I, _I, _I, _I,    # C, r_grp, s_buf, tile_cap, ls_cap, hs_cap, smem
         _I, _P),                       # device, stream
+    "pusch_frontend_clusters": (
+        _I, _I, _I, _I, _P,            # P, qm, C, smem, active (int out)
+        _I, _P),                       # device, stream (unused)
     "tiny_times_two": (_P, _P, _I, _I, _P),  # x, out, n_blocks, device, stream
 }
 

@@ -13,6 +13,7 @@ from openairinterface5g_tpu_torch.coding import ldpc
 from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import ldpc_decoder
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
+from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +59,83 @@ def test_frontend_kernel_matches_plain(cuda, kw):
     assert got.shape == ref.shape == (3, cfg.qm_rate[0], cfg.G // cfg.qm_rate[0])
     err = float((got - ref).abs().max() / ref.abs().max())
     assert err < 2e-4, err
+
+
+def _frontend_err(kw, dev, seed, B):
+    """K3's relative error against its plain version on one configuration,
+    the kernel launched once."""
+    cfg = pusch.PuschConfig(mu=1, **kw)
+    y = _rx_grid(cfg, dev, seed, B=B)
+    ref = fe.frontend_planes_plain(cfg, y)
+    n0 = fe.launches
+    got = fe.frontend_planes(cfg, y)
+    torch.cuda.synchronize()
+    assert fe.launches == n0 + 1
+    assert got.shape == ref.shape == (B, cfg.qm_rate[0], cfg.G // cfg.qm_rate[0])
+    assert bool(torch.isfinite(got).all())
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+# K3's tile edges, B = 1 and B = 40, many antennas (ops/pusch_frontend_cases.py)
+@pytest.mark.parametrize("kw,B", CARD_CASES)
+def test_frontend_kernel_edges(cuda, kw, B):
+    err = _frontend_err(kw, cuda, seed=len(str(kw)) + B, B=B)
+    assert err < 2e-4, err
+
+
+@pytest.mark.parametrize("kw", [dict(n_prb=20, mcs=16, n_layers=2, n_rx=2),
+                                dict(n_prb=273, mcs=16, n_layers=2, n_rx=2),
+                                dict(n_prb=51, mcs=9, n_layers=1, n_rx=3, chest_window=16),
+                                dict(n_prb=3, mcs=16, n_layers=2, n_rx=2, chest_window=16),
+                                dict(n_prb=1, mcs=16, n_layers=2, n_rx=2)])
+def test_frontend_kernel_at_every_cluster_size(cuda, kw):
+    """Every cluster size the kernel takes, where its shape fits: the plan's
+    first and its fallbacks, and tiles that hold fewer pilots than the
+    halo."""
+    cfg = pusch.PuschConfig(mu=1, **kw)
+    y = _rx_grid(cfg, cuda, seed=11)
+    ref = fe.frontend_planes_plain(cfg, y)
+    sizes = [c for c in fe.cluster_sizes(cfg.n_prb)
+             if fe.shape_of(c, cfg.n_rx, cfg.n_layers, 6 * cfg.n_prb, len(cfg.dmrs_symbols),
+                            len(cfg.data_symbols), cfg.chest_window)]
+    assert sizes[0] == fe.cluster_sizes(cfg.n_prb)[0] >= fe.planned_cluster(cfg.n_prb)
+    for c in sizes:
+        got = fe._launch(cfg, y, C=c)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 2e-4, c
+
+
+def test_frontend_launch_refuses_a_short_shape(cuda):
+    """The C side checks the caps and the shared memory it is given against
+    what the tiles and the layout need, and launches nothing when short."""
+    from openairinterface5g_tpu_torch.ops import _cuda
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=16, n_layers=2, n_rx=2)
+    y = _rx_grid(cfg, cuda, seed=12)
+    plan = fe._plan(cfg, y.device)
+    planes = torch.empty((3, *plan.planes_shape), device=cuda)
+    r = _cuda.route()
+    for field, cut in (("tile_cap", 4), ("ls_cap", 2), ("hs_cap", 2), ("smem", 16)):
+        shape = plan.shape._replace(**{field: getattr(plan.shape, field) - cut})
+        rc = r.pusch_frontend(y.data_ptr(), *plan.ptrs, planes.data_ptr(), 3,
+                              *plan.ints[:-len(shape)], *shape, y.get_device(),
+                              r.stream(y.get_device()))
+        assert rc != 0, field
+
+
+def test_frontend_kernel_in_a_cuda_graph(cuda):
+    """K3's cluster launch captured in a CUDA graph and replayed on a new
+    grid gives that grid's planes."""
+    cfg = pusch.PuschConfig(mu=1, n_prb=51, mcs=16, n_layers=2, n_rx=2)
+    y = _rx_grid(cfg, cuda, seed=21)
+    fe.frontend_planes(cfg, y)                  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fe.frontend_planes(cfg, y)
+    y.copy_(_rx_grid(cfg, cuda, seed=22))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = fe.frontend_planes_plain(cfg, y)
+    assert float((out - ref).abs().max() / ref.abs().max()) < 2e-4
 
 
 def test_frontend_kernel_bwp_offset(cuda):

@@ -149,14 +149,18 @@ class _Route:
     """Stands in for ``_cuda.route()``.  Each entry point is a ctypes
     function of the real signature around a recorder, so a call converts
     its arguments as the library's functions do: a wrong count or type
-    raises.  ``stream`` returns a fixed handle."""
+    raises.  ``stream`` returns a fixed handle; ``pusch_frontend_clusters``
+    reports ACTIVE clusters."""
     STREAM = 0x5EED
+    ACTIVE = 4
 
     def __init__(self, rc: int = 0):
         self.calls = []
         for name, argtypes in _cuda._SIGNATURES.items():
             def record(*args, name=name):
                 self.calls.append((name, args))
+                if name == "pusch_frontend_clusters" and not rc:
+                    ctypes.c_int.from_address(args[4]).value = self.ACTIVE
                 return rc
             setattr(self, name, ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(record))
 
@@ -177,7 +181,9 @@ def route(monkeypatch):
     monkeypatch.setattr(tiny, "launches", dict(tiny.launches))
     monkeypatch.setattr(ldpc_decoder, "launches", dict(ldpc_decoder.launches))
     monkeypatch.setattr(fe, "launches", fe.launches)
-    return fake
+    fe._plan.cache_clear()                   # plans made under another route
+    yield fake
+    fe._plan.cache_clear()
 
 
 def _meta(shape, dtype=torch.float32):
@@ -236,10 +242,42 @@ def test_frontend_launch_path(route):
         planes = fe._launch(cfg, _meta((3, 2, 14, 288), torch.complex64))
     qm = cfg.qm_rate[0]
     assert planes.shape == (3, qm, cfg.G // qm) and planes.dtype == torch.float32
-    assert [c for c, _ in route.calls] == ["pusch_frontend"] * 2
-    args = route.calls[0][1]
-    assert args[8:] == (3, 2, 2, 14, 288, 0, 24, 0, 1, 13, qm, 8, -1, _Route.STREAM)
+    # the plan asks the card once, for the planned cluster size, then two launches
+    shape = fe.shape_of(8, 2, 2, 144, 1, 13, 8)
+    assert [c for c, _ in route.calls] == ["pusch_frontend_clusters"] + ["pusch_frontend"] * 2
+    assert route.calls[0][1][:4] == (2, qm, 8, shape.smem)
+    assert route.calls[0][1][5:] == (-1, None)
+    args = route.calls[1][1]
+    # DMRS on symbol 2, data on the other 13 of 0-13; then the shape
+    assert args[4:] == (3, 2, 2, 14, 288, 0, 24, 0, 1, 13, qm, 8, 1 << 2, 0x3FFF & ~(1 << 2),
+                        *shape, -1, _Route.STREAM)
+    assert shape.C == 8 and shape.r_grp == 2 and shape.s_buf == 13
     assert fe.launches == n0 + 2
+
+
+def test_frontend_plan_falls_back_to_a_smaller_cluster(route):
+    """Where the card holds no cluster of the planned size, the plan takes
+    the next smaller size that it holds; where it holds none, the launch
+    raises."""
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=16, n_layers=2, n_rx=2)
+    route.ACTIVE = 0
+    with pytest.raises(ValueError, match="no cluster"):
+        fe._launch(cfg, _meta((3, 2, 14, 288), torch.complex64))
+    assert [a[2] for c, a in route.calls] == [8, 4, 2, 1]
+    sizes = iter([0, 3])
+    fake = _Route()
+    for name, argtypes in _cuda._SIGNATURES.items():
+        if name == "pusch_frontend_clusters":
+            def answer(*args):
+                fake.calls.append(("pusch_frontend_clusters", args))
+                ctypes.c_int.from_address(args[4]).value = next(sizes)
+                return 0
+            fake.pusch_frontend_clusters = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(answer)
+    _cuda._ROUTE = fake
+    fe._plan.cache_clear()
+    fe._launch(cfg, _meta((3, 2, 14, 288), torch.complex64))
+    assert [a[2] for c, a in fake.calls if c == "pusch_frontend_clusters"] == [8, 4]
+    assert fake.calls[-1][0] == "pusch_frontend" and fake.calls[-1][1][18] == 4
 
 
 def test_frontend_launch_refuses_unsupported_config(route):

@@ -61,3 +61,55 @@ def test_bench_ldpc_layered_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         bench_ldpc_layered.run()
+
+
+def test_bench_frontend_needs_cuda(monkeypatch):
+    from openairinterface5g_tpu_torch.tools import bench_frontend
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        bench_frontend.run()
+
+
+def test_bench_frontend_kernel_rows():
+    """The profiler keys of either checkout: one kernel (this one) or two
+    (estimate, equalize); every kernel that ran must have run each call."""
+    from openairinterface5g_tpu_torch.tools import bench_frontend as bf
+    one = {"frontend_kernel": (200.0, 20), "estimate_kernel": (0.0, 0),
+           "equalize_llr_kernel": (0.0, 0)}
+    assert bf.kernel_rows(one, 20) == {"frontend_kernel": 0.01}
+    two = {"frontend_kernel": (0.0, 0), "estimate_kernel": (300.0, 20),
+           "equalize_llr_kernel": (500.0, 20)}
+    rows = bf.kernel_rows(two, 20)
+    assert rows == pytest.approx({"estimate_kernel": 0.015, "equalize_llr_kernel": 0.025})
+    s = bf.summary(rows, events=0.05, graph=0.046)
+    assert s["device_ms"] == pytest.approx(0.04) and s["gaps_ms"] == pytest.approx(0.006)
+    for found in ({k: (0.0, 0) for k in bf.KEYS},
+                  {**two, "equalize_llr_kernel": (480.0, 19)}):
+        with pytest.raises(AssertionError, match="profiler"):
+            bf.kernel_rows(found, 20)
+
+
+def test_bench_frontend_rel_err_and_cases():
+    from openairinterface5g_tpu_torch.models import pusch
+    from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
+    from openairinterface5g_tpu_torch.tools import bench_frontend as bf
+    ref = torch.tensor([[1.0, -4.0], [2.0, 0.5]])
+    assert bf.rel_err(ref + 1e-3, ref) == pytest.approx(2.5e-4, rel=1e-4)
+    with pytest.raises(AssertionError):
+        bf.rel_err(ref.flatten(), ref)
+    with pytest.raises(AssertionError):
+        bf.rel_err(ref * float("nan"), ref)
+    # every card case is a configuration the kernel takes, B = 1 and 40 included
+    from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
+    assert {B for _, B in CARD_CASES} >= {1, 40}
+    for kw, _ in CARD_CASES:
+        assert fe.supported(pusch.PuschConfig(mu=1, **kw)), kw
+
+
+def test_bench_frontend_alternates():
+    from openairinterface5g_tpu_torch.tools import bench_frontend as bf
+    seen = []
+    fn = bf.alternate(lambda: seen.append("a"), lambda: seen.append("b"))
+    for _ in range(5):
+        fn()
+    assert seen == ["a", "b", "a", "b", "a"]
