@@ -17,7 +17,13 @@ Drives the port's two paths with every hand-written CUDA kernel:
     where its time goes at the main path's tensors;
   * slice 5, K3 redesigned (``csrc/pusch_frontend.cu``): one launch of a
     thread-block cluster per slot, the channel estimate kept on chip; its
-    tile edges, B = 1, B = 40 and 16 RX held against the plain version.
+    tile edges, B = 1, B = 40 and 16 RX held against the plain version;
+  * slice 6, K1's flooding kernel (``csrc/ldpc_flooding.cu``) and K2 (now
+    in ``csrc/ldpc_layered.cu``) redesigned on the layered kernel's
+    compressed check-node state: every variant's iteration counts held
+    against the plain version's too, and their delicate cases (Z % 32 !=
+    0, one iteration, B = 1, K2 on signed zeros, int8 saturation, BG2's
+    3-row layers).
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -38,8 +44,10 @@ Phases, one line or more each:
   5. the decoder's variants through decode() (slice 1's layered f32 with f32
      and bf16 input, and slice 2's), 4 dB, 8 iterations, BG1 Z=384 x 208
      and BG2 Z=104 x 64, check_every 0 and 1: kernel bits == plain bits ==
-     sent bits, ok flags equal and all true, every kernel launched; then
-     kernel and plain times at BG1 Z=384 x 208 for both check_every
+     sent bits, ok flags equal and all true, iteration counts equal, every
+     kernel launched; then the edge cases of the flooding kernel and K2
+     (DECODER_EDGES), each kernel == plain in bits, flags and iterations;
+     then kernel and plain times at BG1 Z=384 x 208 for both check_every
   6. launch probes: T1/T2 against their plain version and x * 2; the raw
      stream handle against torch.cuda.current_stream() on the default
      stream, a side stream and in graph capture; T1, T2 and torch.mul(x, 2)
@@ -65,6 +73,7 @@ import time
 
 import torch
 
+from openairinterface5g_tpu_torch.coding import ldpc
 from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
@@ -79,6 +88,17 @@ N_TIMED = bench_launch.MAIN_PATH_BATCHES  # batches in a slots/s window
 N_WINDOWS = 5             # windows of a host-clock or slots/s median
 PROBE_WINDOWS = bench_launch.WINDOWS    # windows of the T1/T2/torch.mul turns
 DECODER_SIZES = ((1, 384, 208), (2, 104, 64))   # (bg, Z, code blocks)
+# the flooding kernel's and K2's delicate cases, each against the plain
+# version in bits, ok flags and iteration counts: (label, bg, Z, code
+# blocks, n_iters, check_every, LLR source); BG1 Z=13 and BG2 Z=104 check
+# parity by the walk (Z % 32 != 0), BG2 has layers of 3 rows
+DECODER_EDGES = (
+    ("Z % 32 != 0, early stop every 3rd", 1, 13, 16, 8, 3, "awgn"),
+    ("one iteration", 2, 104, 16, 1, 1, "awgn"),
+    ("B = 1", 1, 384, 1, 8, 1, "awgn"),
+    ("signed zeros", 2, 64, 12, 8, 1, "signed zeros"),
+    ("saturated", 1, 104, 4, 5, 1, "saturated"),
+)
 
 # Roofline of one H100 SXM (NVIDIA data sheet, at 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores, which counts an FMA as two.
@@ -111,15 +131,14 @@ VARIANTS = (
     ("bf16 flooding", "flooding_bf16", "flooding", torch.bfloat16, torch.float32),
     ("K2 bf16 layered", "layered_bf16", "layered", torch.bfloat16, torch.float32),
 )
-K1_LAYERED = "openairinterface5g_tpu_torch/csrc/ldpc_layered.cu"
-K1_FLOODING = "openairinterface5g_tpu_torch/csrc/ldpc_decoder.cu"
+K1_LAYERED = "openairinterface5g_tpu_torch/csrc/ldpc_layered.cu"   # and K2
+K1_FLOODING = "openairinterface5g_tpu_torch/csrc/ldpc_flooding.cu"
 K1_TPU = "openairinterface5g_tpu/ops/ldpc_pallas.py:61"
 KERNEL_SOURCES = {
     "layered_f32": (K1_LAYERED, K1_TPU), "flooding_f32": (K1_FLOODING, K1_TPU),
     "layered_int8": (K1_LAYERED, K1_TPU), "flooding_int8": (K1_FLOODING, K1_TPU),
     "flooding_bf16": (K1_FLOODING, K1_TPU),
-    "layered_bf16": ("openairinterface5g_tpu_torch/csrc/ldpc_decoder_bf16.cu",
-                     "openairinterface5g_tpu/ops/ldpc_pallas.py:383"),
+    "layered_bf16": (K1_LAYERED, "openairinterface5g_tpu/ops/ldpc_pallas.py:383"),
     "pusch_frontend": ("openairinterface5g_tpu_torch/csrc/pusch_frontend.cu",
                        "openairinterface5g_tpu/ops/pusch_frontend_pallas.py:162"),
     "tiny": ("openairinterface5g_tpu_torch/csrc/tiny.cu", "tools/bench_overhead.py:53"),
@@ -130,7 +149,7 @@ DEVICE_KERNELS = {
     "layered_f32": ("ldpc_layered_kernel",), "layered_int8": ("ldpc_layered_kernel",),
     "flooding_f32": ("ldpc_flooding_kernel",), "flooding_int8": ("ldpc_flooding_kernel",),
     "flooding_bf16": ("ldpc_flooding_kernel",),
-    "layered_bf16": ("ldpc_bf16_kernel",),
+    "layered_bf16": ("ldpc_layered_kernel",),
     "pusch_frontend": ("frontend_kernel",),
     "tiny": ("times_two_kernel",), "tiny_grid": ("times_two_kernel",),
 }
@@ -349,14 +368,18 @@ def phase_decoder(dev, gen) -> dict:
         for label, name, schedule, msg_dtype, in_dtype in VARIANTS:
             x = llr.to(in_dtype).contiguous()
             for ce in (0, 1):
-                kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=ce)
-                bk, okk = ldpc_decoder.decode(g, x, N_ITERS, **kw)
+                kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=ce,
+                          return_iters=True)
+                bk, okk, ik = ldpc_decoder.decode(g, x, N_ITERS, **kw)
                 torch.cuda.synchronize()
-                bp, okp, it = ldpc_decoder.decode_plain(g, x, N_ITERS, return_iters=True, **kw)
+                bp, okp, it = ldpc_decoder.decode_plain(g, x, N_ITERS, **kw)
                 tag = f"{label} BG{g.bg} Z={g.Z} x{x.shape[0]} check_every={ce}"
                 if not torch.equal(bk, bp):
                     raise AssertionError(f"{tag}: kernel bits differ from plain in "
                                          f"{int((bk != bp).sum())} places")
+                if not torch.equal(ik, it):
+                    raise AssertionError(f"{tag}: iteration counts differ from plain in "
+                                         f"{int((ik != it).sum())} code blocks")
                 if not torch.equal(bk, info):
                     raise AssertionError(f"{tag}: bits differ from sent")
                 if not (torch.equal(okk, okp) and bool(okk.all())):
@@ -366,11 +389,12 @@ def phase_decoder(dev, gen) -> dict:
                     errs[label, ce] = int((bk.int() - bp.int()).abs().max())
                     iters[label, ce] = it
         print(f"BG{g.bg} Z={g.Z} x{llr.shape[0]}: every variant at check_every 0 and 1: "
-              f"kernel == plain == sent, all parity ok")
+              f"kernel == plain == sent, iteration counts equal, all parity ok")
     launches = {name: ldpc_decoder.launches[name] for name in ldpc_decoder.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"decoder path missed a kernel: launches {launches}")
     print(f"decoder variants: launches {launches}")
+    _decoder_edges(dev, gen)
 
     g, _, llr = cases[0]
     rows = {}
@@ -397,6 +421,39 @@ def phase_decoder(dev, gen) -> dict:
                   f"{row[ce]['mean_iters']:.3f} iterations per code block")
         rows.setdefault(name, row)           # first row of a kernel: f32 input
     return {"launches": launches, "rows": rows}
+
+
+def _edge_llr(g, n_cb: int, source: str, dev, gen) -> torch.Tensor:
+    """LLRs of one DECODER_EDGES case: AWGN at 2 dB; "signed zeros": only
+    +0.0 and -0.0 (K2 takes the sign bit as the sign); "saturated": AWGN at
+    12 dB times 50, so int8 messages saturate at +-127."""
+    if source == "signed zeros":
+        neg = torch.rand((n_cb, g.cols * g.Z), generator=gen, device=dev) < 0.5
+        zero = torch.zeros((n_cb, g.cols * g.Z), device=dev)
+        return torch.where(neg, -zero, zero)
+    snr = 12.0 if source == "saturated" else 2.0
+    llr = bench_ldpc_layered.awgn_code_blocks(g.bg, g.Z, n_cb, dev, gen, snr_db=snr)[2]
+    return llr * 50 if source == "saturated" else llr
+
+
+def _decoder_edges(dev, gen) -> None:
+    """The flooding kernel's and K2's delicate cases (DECODER_EDGES): each
+    redesigned variant == plain in bits, ok flags and iteration counts."""
+    redesigned = [v for v in VARIANTS if v[1] not in ("layered_f32", "layered_int8")]
+    for tag, bg, Z, n_cb, n_iters, ce, source in DECODER_EDGES:
+        g = ldpc.build_graph(bg, Z)
+        llr = _edge_llr(g, n_cb, source, dev, gen)
+        for label, name, schedule, msg_dtype, in_dtype in redesigned:
+            kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=ce,
+                      return_iters=True)
+            x = llr.to(in_dtype).contiguous()
+            got = ldpc_decoder.decode(g, x, n_iters, **kw)
+            want = ldpc_decoder.decode_plain(g, x, n_iters, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"decoder edge case {tag}, {label}: kernel bits, flags or "
+                                     f"iterations differ from plain")
+    print(f"decoder edge cases ({', '.join(e[0] for e in DECODER_EDGES)}): flooding f32, "
+          f"f32 with bf16 input, int8, bf16 and K2 == plain in bits, flags and iterations")
 
 
 def _check_raw_stream(dev) -> None:

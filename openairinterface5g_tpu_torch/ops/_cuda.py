@@ -45,25 +45,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# both LDPC decoders' entry points (csrc/ldpc_layered.cu, ldpc_flooding.cu)
+_LDPC_DECODE = (
+    _P, _I, _I,                    # llr, in_kind, msg_kind
+    _P, _P, _P,                    # bits, ok, iterations run (or null)
+    _P, _P,                        # state scratch, graph table
+    _I, _I, _I, _I, _I, _I, _I,    # B, layers, rows, cols, E, Z, K
+    _I, _I, _F, _I, _P)            # n_iters, check_every, alpha, device, stream
 # C signatures of the entry points: name -> argtypes (restype is int).  Every
 # entry point ends in (device index, stream).
 _SIGNATURES = {
-    "ldpc_layered_decode": (
-        _P, _I, _I,                    # llr, in_kind, msg_kind
-        _P, _P, _P, _P,                # bits, ok, state scratch, graph table
-        _I, _I, _I, _I, _I, _I, _I,    # B, layers, rows, cols, E, Z, K
-        _I, _I, _F, _I, _P),           # n_iters, check_every, alpha, device, stream
-    "ldpc_flooding_decode": (
-        _P, _I, _I,                    # llr, in_kind, msg_kind
-        _P, _P, _P,                    # bits, ok, c2v scratch
-        _P, _P, _P, _P, _P,            # row_ptr, ecol, eshift, col_ptr, col_edge
-        _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
-        _I, _I, _F, _I, _P),           # n_iters, check_every, alpha, device, stream
-    "ldpc_decode_bf16": (
-        _P, _P, _P, _P,                # llr, bits, ok, c2v scratch
-        _P, _P, _P,                    # row_ptr, ecol, eshift
-        _I, _I, _I, _I, _I, _I,        # B, rows, cols, E, Z, K
-        _I, _F, _I, _P),               # n_iters, alpha (bf16-rounded), device, stream
+    "ldpc_layered_decode": _LDPC_DECODE,
+    "ldpc_flooding_decode": _LDPC_DECODE,
     "pusch_frontend": (
         _P, _P, _P, _P,                # y, pilots, packed scrambling signs, planes
         _I, _I, _I, _I, _I, _I,        # B, R, P, n_sym, n_sc, a0

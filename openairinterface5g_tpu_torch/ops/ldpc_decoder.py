@@ -6,13 +6,17 @@ messages, f32 or bf16 input, early stop every ``check_every`` iterations.
 ``decode`` prepares the input as decode_pallas does and, for a CUDA
 tensor, launches
 
-  * K1 (``_build_decoder``) for every variant but one:
-    ``csrc/ldpc_layered.cu`` for layered with f32 or int8 messages (the
-    main path), which keeps compressed check-node state per row and lane
-    and takes the rows in layers of orthogonal rows (``layer_groups``);
-    ``csrc/ldpc_decoder.cu`` for flooding with f32, int8 or bf16 messages;
-  * K2, ``csrc/ldpc_decoder_bf16.cu`` (``_build_decoder_bf16``), for bf16
-    messages under the layered schedule, as decode_pallas dispatches it.
+  * K1 (``_build_decoder``): ``csrc/ldpc_layered.cu`` for layered with f32
+    or int8 messages (the main path), ``csrc/ldpc_flooding.cu`` for
+    flooding with f32, int8 or bf16 messages;
+  * K2 (``_build_decoder_bf16``), for bf16 messages under the layered
+    schedule, as decode_pallas dispatches it: ``csrc/ldpc_layered.cu``
+    with K2's arithmetic (signs from the sign bit, no early stop).
+
+Both sources keep, per row and lane, a compressed check-node state instead
+of messages, and take the rows in layers of orthogonal rows
+(``layer_groups``) from one graph table (``_layered_tables``);
+``csrc/ldpc_min_sum.cuh`` holds what they share.
 
 For a CPU tensor it runs ``decode_plain``, the same schedules in PyTorch
 with the same operation order and rounding, so kernel, plain version and
@@ -39,6 +43,10 @@ from . import _cuda
 SCHEDULES = ("layered", "flooding")
 _MSG_NAMES = {torch.float32: "f32", torch.int8: "int8", torch.bfloat16: "bf16"}
 _MSG_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}   # csrc MsgKind
+_K2_CODE = 3                                                        # csrc kMsgK2
+# int32 words per (row, lane) of the kernels' check-node state: two
+# magnitudes (f32, int8: 8 B; bf16: packed in 4 B) and the sign and d* word
+_STATE_WORDS = {torch.float32: 3, torch.int8: 3, torch.bfloat16: 2}
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}   # csrc input type
 _BF16_CLIP = 24.0        # ldpc_pallas.py:546, :563: bf16 totals stay near-exact
 
@@ -102,7 +110,7 @@ def _edges_np(bg: int, Z: int):
 
 @functools.lru_cache(maxsize=32)
 def _col_edges_np(bg: int, Z: int):
-    """Edges by column for the flooding variable-node pass: col_ptr
+    """Edges by column for decode_plain's flooding variable-node pass: col_ptr
     (cols+1,), col_edge (E,) int32.  Within a column the edges ascend, the
     order in which ldpc_pallas.py:242-245 adds the messages to a total."""
     _, col, _ = _edges_np(bg, Z)
@@ -112,21 +120,14 @@ def _col_edges_np(bg: int, Z: int):
 
 
 @functools.lru_cache(maxsize=32)
-def _edge_tensors(bg: int, Z: int, device: torch.device):
-    """The kernels' edge tables on the device (row_ptr, ecol, eshift,
-    col_ptr, col_edge), and their data pointers in that order."""
-    ts = tuple(torch.as_tensor(a, device=device)
-               for a in (*_edges_np(bg, Z), *_col_edges_np(bg, Z)))
-    return ts, tuple(t.data_ptr() for t in ts)
-
-
-@functools.lru_cache(maxsize=32)
 def layer_groups(bg: int, Z: int) -> tuple:
-    """The layers of the layered kernel: ((first row, rows), ...), each a
-    run of consecutive rows of which no two share a column, taken greedily
-    in row order (BG1: 46 rows in 32 layers, BG2: 42 in 28, at every Z).
-    Rows of one layer update disjoint totals, so processing them between
-    the same two barriers changes no bit."""
+    """The kernels' layers: ((first row, rows), ...), each a run of
+    consecutive rows of which no two share a column, taken greedily in row
+    order (BG1: 46 rows in 32 layers, BG2: 42 in 28, at every Z).  Rows of
+    one layer update disjoint totals, so processing them between the same
+    two barriers changes no bit: the layered kernel writes each total back,
+    the flooding kernel adds each new message, layer by layer, so a column
+    receives its rows' messages in ascending row order."""
     row_ptr, col, _ = _edges_np(bg, Z)
     groups, used = [], set()
     for r in range(len(row_ptr) - 1):
@@ -140,14 +141,14 @@ def layer_groups(bg: int, Z: int) -> tuple:
     return tuple(map(tuple, groups))
 
 
-# the row degrees of the NR base graphs, each of which the layered kernel
-# unrolls exactly (csrc/ldpc_layered.cu::row_update)
+# the row degrees of the NR base graphs, each of which the kernels unroll
+# exactly (csrc/ldpc_min_sum.cuh::row_update)
 LAYERED_DEGREES = frozenset((3, 4, 5, 6, 7, 8, 9, 10, 19))
 
 
 @functools.lru_cache(maxsize=32)
 def _layered_tables(bg: int, Z: int, device: torch.device):
-    """The layered kernel's graph table on the device (csrc/ldpc_layered.cu):
+    """The kernels' graph table on the device (csrc/ldpc_min_sum.cuh):
     per layer first row | rows << 16, per row first edge | degree << 16,
     per edge col * Z | shift << 16, int32; its data pointer and the number
     of layers.  Raises ValueError for a row degree outside LAYERED_DEGREES."""
@@ -354,9 +355,11 @@ def decode_bf16_plain(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
 
 def decode(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
            alpha: float = 0.8125, schedule: str = "layered", sb: int | None = None,
-           msg_dtype: torch.dtype = torch.float32, check_every: int = 0):
+           msg_dtype: torch.dtype = torch.float32, check_every: int = 0,
+           return_iters: bool = False):
     """(B, cols*Z) LLRs -> (bits (B, K) int8, ok (B,) bool), with the
-    signature of decode_pallas.
+    signature of decode_pallas; with ``return_iters``, as in decode_plain,
+    also the (B,) int32 iterations each code block ran.
 
     schedule 'layered' or 'flooding'; msg_dtype torch.float32, torch.int8
     or torch.bfloat16 (bf16 + layered is K2).  ``sb``, the number of code
@@ -367,44 +370,36 @@ def decode(graph: LDPCGraph, llr: torch.Tensor, n_iters: int = 8,
     """
     name = kernel_name(schedule, msg_dtype)
     if llr.is_cuda:
-        return _launch(name, graph, llr, n_iters, alpha, msg_dtype, check_every)
+        return _launch(name, graph, llr, n_iters, alpha, msg_dtype, check_every, return_iters)
     if llr.device.type != "cpu":
         raise ValueError(f"decode: tensor on {llr.device}, not CUDA or CPU")
-    return decode_plain(graph, llr, n_iters, alpha, check_every, schedule, msg_dtype)
+    return decode_plain(graph, llr, n_iters, alpha, check_every, schedule, msg_dtype,
+                        return_iters)
 
 
 def _launch(name: str, g: LDPCGraph, llr: torch.Tensor, n_iters: int, alpha: float,
-            msg_dtype: torch.dtype, check_every: int):
+            msg_dtype: torch.dtype, check_every: int, return_iters: bool = False):
     check_args(g, llr.shape, llr.is_contiguous(), n_iters, check_every)
     x = prepare_input(llr, msg_dtype).contiguous()
     B, dev, index = x.shape[0], x.device, x.get_device()
-    tables, ptrs = _edge_tensors(g.bg, g.Z, dev)
-    E = tables[1].numel()
+    table, table_ptr, n_layers = _layered_tables(g.bg, g.Z, dev)
     bits = torch.empty((B, g.K), dtype=torch.int8, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev) if return_iters else None
+    # per (row, lane) the check-node state, never read before the kernel writes it
+    state = torch.empty((_STATE_WORDS[msg_dtype] * B * g.rows * g.Z,), dtype=torch.int32,
+                        device=dev)
     if msg_dtype is torch.bfloat16:      # bf16 paths scale by alpha in bf16
         alpha = _round_bf16(alpha)
     r = _cuda.route()
-    if name == "layered_bf16":
-        c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
-        rc = r.ldpc_decode_bf16(
-            x.data_ptr(), bits.data_ptr(), ok.data_ptr(), c2v.data_ptr(), *ptrs[:3],
-            B, g.rows, g.cols, E, g.Z, g.K, n_iters, alpha, index, r.stream(index))
-    elif name.startswith("layered"):
-        _, table_ptr, n_layers = _layered_tables(g.bg, g.Z, dev)
-        # per (row, lane): two magnitudes (8 B) and the sign and d* word (4 B)
-        state = torch.empty((3 * B * g.rows * g.Z,), dtype=torch.int32, device=dev)
-        rc = r.ldpc_layered_decode(
-            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype], bits.data_ptr(),
-            ok.data_ptr(), state.data_ptr(), table_ptr, B, n_layers, g.rows, g.cols, E,
-            g.Z, g.K, n_iters, check_every, alpha, index, r.stream(index))
-    else:
-        c2v = torch.empty((B, E, g.Z), dtype=msg_dtype, device=dev)
-        rc = r.ldpc_flooding_decode(
-            x.data_ptr(), _IN_CODES[x.dtype], _MSG_CODES[msg_dtype], bits.data_ptr(),
-            ok.data_ptr(), c2v.data_ptr(), *ptrs, B, g.rows, g.cols, E, g.Z, g.K,
-            n_iters, check_every, alpha, index, r.stream(index))
+    entry = r.ldpc_flooding_decode if name.startswith("flooding") else r.ldpc_layered_decode
+    rc = entry(x.data_ptr(), _IN_CODES[x.dtype],
+               _K2_CODE if name == "layered_bf16" else _MSG_CODES[msg_dtype],
+               bits.data_ptr(), ok.data_ptr(), iters.data_ptr() if return_iters else None,
+               state.data_ptr(), table_ptr, B, n_layers, g.rows, g.cols,
+               table.numel() - n_layers - g.rows, g.Z, g.K, n_iters, check_every, alpha,
+               index, r.stream(index))
     if rc:
         raise _cuda.error(rc, f"ldpc decode ({name})")
     launches[name] += 1
-    return bits, ok
+    return (bits, ok, iters) if return_iters else (bits, ok)

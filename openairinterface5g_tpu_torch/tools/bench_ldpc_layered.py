@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1's layered decoder on one GPU: its device time, and where that time goes
-at the main path's tensors.
+"""The LDPC decoders on one GPU: their device times, and where K1 layered's
+time goes at the main path's tensors.
 
     python -m openairinterface5g_tpu_torch.tools.bench_ldpc_layered
 
@@ -18,8 +18,10 @@ Rows (``ldpc_decoder.decode``, 8 iterations unless named):
                   the same tensors at (0, 0), (1, 0), (1, 1) and (8, 0)
   awgn ...        BG1 Z=384 x 208 random code blocks, BPSK over AWGN at
                   4 dB, punctured head at 0 (chip_smoke.py's decoder
-                  phase): f32 and bf16 input with f32 messages, int8
-                  messages; check_every 0 and 1
+                  phase), check_every 0 and 1, every variant: K1 layered
+                  and flooding with f32 messages (f32 and bf16 input) and
+                  int8 messages, K1 flooding with bf16 messages, and K2
+                  (bf16 messages, layered; it ignores check_every)
 
 The split of the main path's time, from the four split rows (T(n, c)):
   no iteration     T(0,0): reading the LLRs, the message or state set-up,
@@ -56,10 +58,15 @@ CALLS = 10
 SNR_DB = 4.0
 AWGN = (1, 384, 208)            # (bg, Z, code blocks)
 SPLIT = ((0, 0), (1, 0), (1, 1), (8, 0))   # (n_iters, check_every)
-# (label, message type, input type) of the AWGN rows
-VARIANTS = (("f32", torch.float32, torch.float32), ("f32, bf16 input", torch.float32,
-                                                     torch.bfloat16),
-            ("int8", torch.int8, torch.float32))
+# (label, schedule, message type, input type) of the AWGN rows
+VARIANTS = (("layered f32", "layered", torch.float32, torch.float32),
+            ("layered f32, bf16 input", "layered", torch.float32, torch.bfloat16),
+            ("layered int8", "layered", torch.int8, torch.float32),
+            ("flooding f32", "flooding", torch.float32, torch.float32),
+            ("flooding f32, bf16 input", "flooding", torch.float32, torch.bfloat16),
+            ("flooding int8", "flooding", torch.int8, torch.float32),
+            ("flooding bf16", "flooding", torch.bfloat16, torch.float32),
+            ("K2", "layered", torch.bfloat16, torch.float32))
 
 
 def profiled_rows(fn, calls: int, keys: tuple) -> dict:
@@ -128,7 +135,7 @@ def split(g, llr: torch.Tensor, calls: int = CALLS) -> dict:
 
 def run() -> dict:
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: bench_ldpc_layered measures K1 on a GPU")
+        raise RuntimeError("no CUDA device: bench_ldpc_layered measures the decoders on a GPU")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -139,10 +146,10 @@ def run() -> dict:
                              CALLS, ("ldpc_",)),
            "split": split(g, llr), "awgn": {}}
     ga, _, la = awgn_code_blocks(*AWGN, dev, gen)
-    for label, msg_dtype, in_dtype in VARIANTS:
+    for label, schedule, msg_dtype, in_dtype in VARIANTS:
         x = la.to(in_dtype).contiguous()
         for ce in (0, 1):
-            fn = _held(ga, x, 8, msg_dtype=msg_dtype, check_every=ce)
+            fn = _held(ga, x, 8, schedule=schedule, msg_dtype=msg_dtype, check_every=ce)
             out["awgn"][f"{label} check_every={ce}"] = device_ms(fn, CALLS, ("ldpc_",))
     print(json.dumps(out))
     return out

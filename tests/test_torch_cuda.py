@@ -247,13 +247,14 @@ def test_decoder_variant_kernel_matches_plain(cuda, bg, Z, n_cb, schedule, msg_d
     name = ldpc_decoder.kernel_name(schedule, msg_dtype)
     n0 = ldpc_decoder.launches[name]
     kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=check_every)
-    bk, okk = ldpc_decoder.decode(g, x, 6, **kw)
-    bp, okp = ldpc_decoder.decode_plain(g, x, 6, **kw)
+    bk, okk, ik = ldpc_decoder.decode(g, x, 6, return_iters=True, **kw)
+    bp, okp, ip = ldpc_decoder.decode_plain(g, x, 6, return_iters=True, **kw)
     torch.cuda.synchronize()
     assert ldpc_decoder.launches[name] == n0 + 1
-    assert bk.dtype == torch.int8 and okk.dtype == torch.bool
+    assert bk.dtype == torch.int8 and okk.dtype == torch.bool and ik.dtype == torch.int32
     assert torch.equal(bk, bp)
     assert torch.equal(okk, okp)
+    assert torch.equal(ik, ip)                   # each code block's early stop
     for i in np.nonzero(okk.cpu().numpy())[0]:
         np.testing.assert_array_equal(bk[i].cpu().numpy(), info[i])
 
@@ -284,15 +285,92 @@ def test_layered_kernel_matches_plain(cuda, case, msg_dtype, in_dtype, n_iters, 
         assert len(set(iters.tolist())) > 1          # blocks stop at different iterations
 
 
-def test_int8_kernel_saturates(cuda):
-    """Large LLRs: int8 messages saturate at +-127 in kernel and plain alike."""
+@pytest.mark.parametrize("check_every", [0, 1])
+def test_int8_kernel_saturates(cuda, check_every):
+    """Large LLRs: int8 messages saturate at +-127 in kernel and plain alike,
+    under both schedules, in BG2 and in BG1 (columns of degree 30)."""
+    for bg, Z in ((2, 64), (1, 104)):
+        g = ldpc.build_graph(bg, Z)
+        info, llr = _awgn_llr(g, 3, seed=9, snr_db=12.0)
+        x = torch.as_tensor(llr * 50, device=cuda)
+        for schedule in ("layered", "flooding"):
+            kw = dict(schedule=schedule, msg_dtype=torch.int8, check_every=check_every,
+                      return_iters=True)
+            got = ldpc_decoder.decode(g, x, 5, **kw)
+            want = ldpc_decoder.decode_plain(g, x, 5, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (bg, schedule)
+            assert bool(got[1].all())
+
+
+# K1's flooding kernel (csrc/ldpc_flooding.cu) and K2 (csrc/ldpc_layered.cu
+# with K2's arithmetic): (schedule, message type, input type)
+REDESIGNED = [("flooding", torch.float32, torch.float32),
+              ("flooding", torch.float32, torch.bfloat16),
+              ("flooding", torch.int8, torch.float32),
+              ("flooding", torch.bfloat16, torch.float32),
+              ("layered", torch.bfloat16, torch.float32)]
+
+
+# BG2 Z=104: Z % 32 != 0, so the walk over each row's edges checks parity,
+# and BG2's layers of 3 rows; BG2 Z=64: the packed check
+@pytest.mark.parametrize("bg,Z", [(2, 104), (2, 64)])
+@pytest.mark.parametrize("case", ["awgn", "ties", "zeros", "all zero"])
+@pytest.mark.parametrize("schedule,msg_dtype,in_dtype", REDESIGNED)
+@pytest.mark.parametrize("n_iters,check_every", [(1, 0), (1, 1), (6, 0), (8, 1), (8, 3)])
+def test_flooding_and_k2_kernels_match_plain(cuda, bg, Z, case, schedule, msg_dtype,
+                                             in_dtype, n_iters, check_every):
+    """Bits, ok flags and iteration counts equal the plain version's, for
+    one iteration, early stop every first and third iteration, ties in |v|,
+    -0.0 and zeros.  K2 runs n_iters iterations whatever check_every is."""
+    g = ldpc.build_graph(bg, Z)
+    _, llr = _awgn_llr(g, 16, seed=7 + Z, snr_db=(0.0, 4.0), case=case)
+    x = torch.as_tensor(llr, device=cuda).to(in_dtype)
+    name = ldpc_decoder.kernel_name(schedule, msg_dtype)
+    n0 = ldpc_decoder.launches[name]
+    kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=check_every,
+              return_iters=True)
+    bk, okk, ik = ldpc_decoder.decode(g, x, n_iters, **kw)
+    bp, okp, ip = ldpc_decoder.decode_plain(g, x, n_iters, **kw)
+    torch.cuda.synchronize()
+    assert ldpc_decoder.launches[name] == n0 + 1
+    assert torch.equal(bk, bp) and torch.equal(okk, okp) and torch.equal(ik, ip)
+    if name == "layered_bf16":
+        assert bool((ik == n_iters).all())
+
+
+@pytest.mark.parametrize("bg,Z,n_cb", [(1, 384, 1), (2, 104, 1), (1, 384, 208)])
+@pytest.mark.parametrize("schedule,msg_dtype,in_dtype", REDESIGNED)
+def test_flooding_and_k2_kernels_at_one_and_208_code_blocks(cuda, bg, Z, n_cb, schedule,
+                                                            msg_dtype, in_dtype):
+    g = ldpc.build_graph(bg, Z)
+    info, llr = _awgn_llr(g, n_cb, seed=n_cb + Z, snr_db=2.0)
+    x = torch.as_tensor(llr, device=cuda).to(in_dtype)
+    for check_every in (0, 1):
+        kw = dict(schedule=schedule, msg_dtype=msg_dtype, check_every=check_every,
+                  return_iters=True)
+        got = ldpc_decoder.decode(g, x, 8, **kw)
+        want = ldpc_decoder.decode_plain(g, x, 8, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), check_every
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 8])
+def test_k2_kernel_on_signed_zeros(cuda, n_iters):
+    """K2 on inputs of nothing but +0.0 and -0.0: the sign bit is the sign,
+    so a -0.0 total gives bit 0 and yet a failing parity flag, as in the
+    plain version."""
     g = ldpc.build_graph(2, 64)
-    info, llr = _awgn_llr(g, 3, seed=9, snr_db=12.0)
-    x = torch.as_tensor(llr * 50, device=cuda)
-    for schedule in ("layered", "flooding"):
-        bk, okk = ldpc_decoder.decode(g, x, 5, schedule=schedule, msg_dtype=torch.int8)
-        bp, okp = ldpc_decoder.decode_plain(g, x, 5, schedule=schedule, msg_dtype=torch.int8)
-        assert torch.equal(bk, bp) and torch.equal(okk, okp) and bool(okk.all())
+    rng = np.random.default_rng(n_iters)
+    llr = np.where(rng.random((12, g.cols * g.Z)) < 0.5, -0.0, 0.0).astype(np.float32)
+    llr[:4] = 0.0                                 # all +0.0: the zero codeword
+    llr[4:6] = -0.0                               # all -0.0
+    x = torch.as_tensor(llr, device=cuda)
+    kw = dict(msg_dtype=torch.bfloat16, return_iters=True)
+    bk, okk, ik = ldpc_decoder.decode(g, x, n_iters, **kw)
+    bp, okp, ip = ldpc_decoder.decode_plain(g, x, n_iters, **kw)
+    assert torch.equal(bk, bp) and torch.equal(okk, okp) and torch.equal(ik, ip)
+    assert not bool(bk.any()) and bool(okk[:4].all())
+    if n_iters == 0:
+        assert not bool(okk[4:].any())            # -0.0 totals: parity fails
 
 
 @pytest.mark.parametrize("name,shape", [("tiny", (8, 128)), ("tiny_grid", (8, 8, 128))])

@@ -206,32 +206,51 @@ def test_tiny_launch_path(route, name, shape, n_blocks):
     ("layered", torch.float32, torch.bfloat16, "ldpc_layered_decode", (1, 0)),
     ("flooding", torch.float32, torch.float32, "ldpc_flooding_decode", (0, 0)),
     ("layered", torch.int8, torch.float32, "ldpc_layered_decode", (2, 1)),
+    ("flooding", torch.int8, torch.float32, "ldpc_flooding_decode", (2, 1)),
     ("flooding", torch.bfloat16, torch.float32, "ldpc_flooding_decode", (1, 2)),
-    ("layered", torch.bfloat16, torch.float32, "ldpc_decode_bf16", None),
+    ("layered", torch.bfloat16, torch.float32, "ldpc_layered_decode", (1, 3)),   # K2
 ])
-def test_decode_launch_path(route, schedule, msg_dtype, in_dtype, entry, codes):
+@pytest.mark.parametrize("return_iters", [False, True])
+def test_decode_launch_path(route, monkeypatch, schedule, msg_dtype, in_dtype, entry, codes,
+                            return_iters):
+    """Both schedules and K2 take one C signature: the input and message
+    kinds (K2 is message kind 3), the outputs, the state scratch (3 words
+    per row and lane for f32 and int8 messages, 2 for bf16), the graph
+    table of 28 layers of BG2's 42 rows."""
     g = ldpc.build_graph(2, 64)
     name = ldpc_decoder.kernel_name(schedule, msg_dtype)
     E = int(g.evalid.sum())
     n0 = ldpc_decoder.launches[name]
-    bits, ok = ldpc_decoder._launch(name, g, _meta((3, g.cols * g.Z), in_dtype), 6, 0.8,
-                                    msg_dtype, 1)
+    x = _meta((3, g.cols * g.Z), in_dtype)
+    allocated = []
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        allocated.append(real_empty(*args, **kwargs))
+        return allocated[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", empty)
+        out = ldpc_decoder._launch(name, g, x, 6, 0.8, msg_dtype, 1, return_iters)
+    bits, ok = out[:2]
+    assert len(out) == (3 if return_iters else 2)
     assert bits.shape == (3, g.K) and bits.dtype == torch.int8
     assert ok.shape == (3,) and ok.dtype == torch.bool
     [(called, args)] = route.calls
     assert called == entry and args[-2:] == (-1, _Route.STREAM)
-    alpha = 0.80078125 if msg_dtype == torch.bfloat16 else 0.8   # bf16 paths: alpha in bf16
-    if codes is None:                                   # K2: no in/msg kinds, no check_every
-        assert args[7:13] == (3, g.rows, g.cols, E, g.Z, g.K) and args[13] == 6
-        assert args[14] == pytest.approx(alpha, rel=1e-7)
-    elif schedule == "layered":                         # 28 layers of BG2's 42 rows
-        assert args[1:3] == codes
-        assert args[7:16] == (3, 28, g.rows, g.cols, E, g.Z, g.K, 6, 1)
-        assert args[16] == pytest.approx(alpha, rel=1e-7)
+    assert args[1:3] == codes
+    if return_iters:        # (a meta tensor's data pointer is null too)
+        assert out[2].shape == (3,) and out[2].dtype == torch.int32
     else:
-        assert args[1:3] == codes
-        assert args[11:19] == (3, g.rows, g.cols, E, g.Z, g.K, 6, 1)
-        assert args[19] == pytest.approx(alpha, rel=1e-7)
+        assert args[5] is None                           # no iterations asked: null
+    # one state scratch, and no (B, E, Z) messages
+    words = 2 if msg_dtype == torch.bfloat16 else 3
+    state = [t for t in allocated if t.dtype == torch.int32 and t.dim() == 1 and t.numel() > 3]
+    assert [t.numel() for t in state] == [words * 3 * g.rows * g.Z]
+    assert max(t.numel() for t in allocated) < 3 * E * g.Z      # nothing of (B, E, Z)
+    assert args[8:17] == (3, 28, g.rows, g.cols, E, g.Z, g.K, 6, 1)
+    alpha = 0.80078125 if msg_dtype == torch.bfloat16 else 0.8   # bf16 paths: alpha in bf16
+    assert args[17] == pytest.approx(alpha, rel=1e-7)
     assert ldpc_decoder.launches[name] == n0 + 1
 
 

@@ -87,7 +87,6 @@ def test_rx_matches_jax_bf16_path():
     assert (p.bg, p.Z, p.C) == (1, 384, 2)
 
 
-@pytest.mark.slow
 def test_rx_matches_jax_f32_path():
     cfg = _rx_case(24, seed=5)
     assert cfg.seg_params()[0].Z == 320
