@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths with every hand-written CUDA kernel:
+Drives the port's paths with every hand-written CUDA kernel:
   * slice 1, the PUSCH receive path (openairinterface5g_tpu_torch) at the
     100 MHz 2x2 configuration: 273 PRB, MCS 16, 2 layers, 2 RX antennas,
     8 slots per batch, 8 LDPC iterations (K3 and K1's layered f32 variant);
@@ -24,6 +24,11 @@ Drives the port's two paths with every hand-written CUDA kernel:
     against the plain version's too, and their delicate cases (Z % 32 !=
     0, one iteration, B = 1, K2 on signed zeros, int8 saturation, BG2's
     3-row layers).
+  * slice 7, the link-level simulators (``openairinterface5g_tpu_torch/sim``)
+    through the port's autotest: ldpctest, ulschsim and dlschsim, and five
+    ulsim points of the conformance matrix (15 kHz, 273 PRB with 8 RX, 2
+    layers over TDL-C, 4 layers on the unfused chain, 100 Hz Doppler),
+    each with K1 and K3 where its configuration takes them.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -53,19 +58,32 @@ Phases, one line or more each:
      stream, a side stream and in graph capture; T1, T2 and torch.mul(x, 2)
      in turns (tools/bench_launch.py: host µs, CUDA-event ms and graph-
      replay device ms per call, medians of 15 windows); where T1's host µs go
+  7. simulators: SIM_CASES through sim/autotest.py in this process, each
+     case's verdict, first SNR line, SNR of its pass, wall seconds and the
+     K1 (layered f32) and K3 launches it added; each case's first
+     SIM_HELD_CALLS calls of K3 and K1 held against their plain versions on
+     the path's own inputs (K3 within K3_TOL, K1 bit-equal on the HARQ-
+     combined LLRs); a case that does not pass, a kernel that disagrees, a
+     --backend kernel case without K1 (or a reference case with it), and a
+     case that K3's ``supported`` admits without K3 (or one it refuses with
+     it) fail the run
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
 check_every=1, f32 input, with check_every=0 under *_check_every_0 keys).
 Beside ms (CUDA events over back-to-back calls), each row has device_ms
 (torch.profiler's rows of the kernel's own CUDA kernels, per call) and
-host_us (the wrapper's enqueue per call, median of 5 windows).
+host_us (the wrapper's enqueue per call, median of 5 windows); K1 layered
+f32 and K3 also carry launches_simulators, their launches in phase 7, and
+held_simulators and max_abs_err_simulators, the calls held against plain
+there and the largest error.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -78,6 +96,7 @@ from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
+from openairinterface5g_tpu_torch.sim import autotest, ulsim
 from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
 
 SEED = 1234
@@ -99,6 +118,17 @@ DECODER_EDGES = (
     ("signed zeros", 2, 64, 12, 8, 1, "signed zeros"),
     ("saturated", 1, 104, 4, 5, 1, "saturated"),
 )
+# the simulator phase's cases (sim/autotest.py ids): the codec simulators,
+# then conformance points at 15 kHz (25 PRB), full width (273 PRB, 8 RX),
+# 2 layers over TDL-C, 4 layers on two CDM groups (the unfused chain) and
+# under 100 Hz HST Doppler
+SIM_CASES = ("ldpctest-BG1-8448", "ulschsim-mcs9", "dlschsim-mcs15",
+             "3gpp-04-A5-8-5MHz-2rx", "3gpp-24-A5-14-100MHz-8rx", "3gpp-27-A4-27-2layer-2rx",
+             "mimo-5-mcs9-4layer", "ulsim-GFR1A513-doppler100")
+# calls of K3 and of K1 held against their plain versions in each case: the
+# first batch's two HARQ rounds (rv 0, then rv 2 combined into rv 0's
+# buffer), or two batches where a case runs one round
+SIM_HELD_CALLS = 2
 
 # Roofline of one H100 SXM (NVIDIA data sheet, at 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores, which counts an FMA as two.
@@ -242,17 +272,24 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def _k3_check(tag: str, got: torch.Tensor, ref: torch.Tensor) -> float:
-    """K3 output against its plain version: returns max |kernel - plain|;
-    raises on a shape, a non-finite value or a relative error >= K3_TOL."""
+def _k3_err(tag: str, got: torch.Tensor, ref: torch.Tensor) -> tuple[float, str]:
+    """K3 output against its plain version: returns max |kernel - plain|
+    and a line that states it; raises on a shape, a non-finite value or a
+    relative error >= K3_TOL."""
     if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"K3 {tag}: shape {tuple(got.shape)} or non-finite")
     abs_err = float((got - ref).abs().max())
     err = abs_err / float(ref.abs().max())
     if not err < K3_TOL:
         raise AssertionError(f"K3 {tag}: relative error {err:.3e} >= {K3_TOL}")
-    print(f"K3 pusch_frontend {tag}: max err / max|LLR| = {err:.3e} "
-          f"(max abs err {abs_err:.3e})")
+    return abs_err, (f"K3 pusch_frontend {tag}: max err / max|LLR| = {err:.3e} "
+                     f"(max abs err {abs_err:.3e})")
+
+
+def _k3_check(tag: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """_k3_err, printing its line."""
+    abs_err, line = _k3_err(tag, got, ref)
+    print(line)
     return abs_err
 
 
@@ -556,6 +593,104 @@ def phase_probes(dev, gen) -> dict:
     return {"launches": launches, "probes": out, "route_parts": parts}
 
 
+@contextlib.contextmanager
+def _held_to_plain(cid: str, held: dict, lines: list):
+    """While a simulator case runs, its first SIM_HELD_CALLS calls of K3
+    (``fe.frontend_planes``) and of K1 (``ldpc_decoder.decode``) are held
+    against the plain versions on the same inputs: the path's own grids,
+    and its rate-recovered, HARQ-combined LLRs at the case's iteration
+    count.  The plain versions run in PyTorch, so the check adds no launch.
+    K3 within K3_TOL of max|plain|, K1 bit-equal in bits and ok flags;
+    `held` collects per kernel the calls held and the largest error,
+    `lines` a line per call held (the case's own output is captured)."""
+    k3, k1 = fe.frontend_planes, ldpc_decoder.decode
+    n = {"pusch_frontend": 0, "layered_f32": 0}
+
+    def k3_held(cfg, re_grid):
+        planes = k3(cfg, re_grid)
+        if n["pusch_frontend"] < SIM_HELD_CALLS:
+            n["pusch_frontend"] += 1
+            tag = (f"{cid} call {n['pusch_frontend']}: mu={cfg.mu} {cfg.n_prb} PRB "
+                   f"{cfg.n_layers}x{cfg.n_rx} window {cfg.chest_window} B={re_grid.shape[0]}")
+            err, line = _k3_err(tag, planes, fe.frontend_planes_plain(cfg, re_grid))
+            lines.append(line)
+            _note(held, "pusch_frontend", err)
+        return planes
+
+    def k1_held(g, llr, n_iters=8, **kw):
+        got = k1(g, llr, n_iters, **kw)
+        name = ldpc_decoder.kernel_name(kw.get("schedule", "layered"),
+                                        kw.get("msg_dtype", torch.float32))
+        if name in n and n[name] < SIM_HELD_CALLS:
+            n[name] += 1
+            want = ldpc_decoder.decode_plain(g, llr, n_iters, **kw)
+            tag = (f"K1 {name} {cid} call {n[name]}: BG{g.bg} Z={g.Z} x{llr.shape[0]} "
+                   f"{str(llr.dtype).removeprefix('torch.')} input, {n_iters} iterations")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{tag}: kernel bits or ok flags differ from plain in "
+                                     f"{int((got[0] != want[0]).sum())} bits, "
+                                     f"{int((got[1] != want[1]).sum())} flags")
+            lines.append(f"{tag}: kernel == plain in bits and ok flags "
+                         f"({int(want[1].sum())}/{want[1].numel()} parity ok)")
+            _note(held, name, int((got[0].int() - want[0].int()).abs().max()))
+        return got
+
+    fe.frontend_planes, ldpc_decoder.decode = k3_held, k1_held
+    try:
+        yield
+    finally:
+        fe.frontend_planes, ldpc_decoder.decode = k3, k1
+
+
+def _note(held: dict, name: str, err: float) -> None:
+    calls, worst = held.get(name, (0, 0.0))
+    held[name] = (calls + 1, max(worst, err))
+
+
+def phase_simulators() -> dict:
+    """SIM_CASES through the port's autotest in this process, on the card,
+    each case's first K1 and K3 calls held against their plain versions.
+    Returns the K1 (layered f32) and K3 launches of the whole phase and,
+    per kernel, (calls held, largest error)."""
+    cases = {c[0]: c[1:4] for c in autotest.CASES}
+    cases.update({cid: ("ulsim", argv, "PUSCH test OK")
+                  for cid, argv in autotest.CONFORMANCE_CASES})
+    held = {}
+    fe.launches = 0
+    for k in ldpc_decoder.launches:
+        ldpc_decoder.launches[k] = 0
+    for cid in SIM_CASES:
+        module, argv, pass_str = cases[cid]
+        k1_0, k3_0 = ldpc_decoder.launches["layered_f32"], fe.launches
+        lines = []
+        with _held_to_plain(cid, held, lines):
+            r = autotest.judge(cid, module, argv, pass_str, device="cuda")
+        k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
+        where = f"passed at {r.last_snr_db:.2f} dB" if r.status == "PASS" else r.status
+        print(f"simulator {cid}: {where} in {r.seconds:.1f} s; first: {r.first_snr_line}; "
+              f"launches K1 {k1}, K3 {k3}")
+        for line in lines:
+            print(f"  {line}")
+        if r.status != "PASS":
+            raise AssertionError(f"simulator {cid}: {r.status}\n{r.output}")
+        if module == "ulsim":
+            cfg = ulsim.config(ulsim.parse_args(argv))
+            want = {"K1": cfg.decoder_backend == "kernel", "K3": fe.supported(cfg)}
+        else:                                   # codec simulators: the flooding decoder
+            want = {"K1": False, "K3": False}
+        got = {"K1": k1 > 0, "K3": k3 > 0}
+        if got != want:
+            raise AssertionError(f"simulator {cid}: kernels launched {got}, its configuration "
+                                 f"takes {want}")
+    launches = {"layered_f32": ldpc_decoder.launches["layered_f32"], "pusch_frontend": fe.launches}
+    if sorted(held) != sorted(launches):
+        raise AssertionError(f"simulators: kernels held against plain {sorted(held)}, "
+                             f"launched {launches}")
+    print(f"simulators: {len(SIM_CASES)} cases passed; launches {launches}; held against "
+          f"plain (calls, max abs err): {held}")
+    return {"launches": launches, "held": held}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -576,6 +711,7 @@ def main() -> None:
     main_path = phase_main_path(dev, gen, smi_line)
     decoder = phase_decoder(dev, gen)
     probes = phase_probes(dev, gen)
+    sims = phase_simulators()
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -583,6 +719,9 @@ def main() -> None:
         kernels.append(_entry(name, main_path["launches"][name], main_path["errs"][name],
                               ms, plain_ms, main_path["bounds"][name],
                               main_path["device"][name], main_path["host"][name],
+                              launches_simulators=sims["launches"][name],
+                              held_simulators=sims["held"][name][0],
+                              max_abs_err_simulators=sims["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

@@ -178,18 +178,41 @@ def tx_cols_needed(graph, rv: int, es: tuple, F: int,
     return 2 + -(-max_end // g.Z)
 
 
+def rate_match_tx(graph, codeword: torch.Tensor, rv: int, E: int, F: int,
+                  ncb: int | None = None) -> torch.Tensor:
+    """(..., cols*Z) mother codewords -> (..., E) transmitted bits of one
+    code block each (the selection, without the interleaver).
+
+    ncb: optional limited circular-buffer size (LBRM, TS 38.212 5.4.2.1).
+    """
+    g = graph
+    d = codeword[..., 2 * g.Z:]                         # drop punctured head
+    return torch.cat([d[..., d0: d0 + ln]
+                      for (_, d0, ln) in _rx_runs(g.bg, g.Z, g.kc, rv, E, F, ncb)], dim=-1)
+
+
+def rate_match_rx(graph, llr_e: torch.Tensor, rv: int, F: int, harq_buffer=None,
+                  filler_llr: float = 1e4) -> torch.Tensor:
+    """(B, E) received LLRs of one code block each -> (B, cols*Z)
+    mother-code LLRs.
+
+    Adds into `harq_buffer` (same shape, previous rounds' LLRs) when given:
+    the HARQ soft combine.  Punctured head bits get LLR 0, fillers a large
+    known-zero LLR.
+    """
+    full = _fused_rx_body(graph, lambda j0, j1, E: llr_e[:, None], llr_e.shape[0],
+                          llr_e.dtype, llr_e.device, (llr_e.shape[-1],), rv, F,
+                          None, filler_llr, None)[:, 0]
+    return full if harq_buffer is None else full + harq_buffer
+
+
 def fused_rate_match_tx(graph, codeword_cbs, rv: int, es: tuple, qm: int,
                         F: int, ncb: int | None = None):
     """(B, C, cols*Z) mother codewords -> (B, G) interleaved codeword bits."""
-    g = graph
     B = codeword_cbs.shape[0]
-    d = codeword_cbs[..., 2 * g.Z:]                     # drop punctured head
     parts = []
     for (j0, j1, E) in _cb_groups(tuple(es)):
-        seg = torch.cat(
-            [d[:, j0:j1, d0: d0 + ln]
-             for (_, d0, ln) in _rx_runs(g.bg, g.Z, g.kc, rv, E, F, ncb)],
-            dim=-1)                                     # (B, Cg, E)
+        seg = rate_match_tx(graph, codeword_cbs[:, j0:j1], rv, E, F, ncb)   # (B, Cg, E)
         parts.append(interleave_tx(seg, qm).reshape(B, -1))
     return torch.cat(parts, dim=-1)
 

@@ -1,8 +1,9 @@
 """Carry configuration and state from the JAX package to this port.
 
 A RAN PHY has no learned weights: what crosses over is the PUSCH
-configuration and the HARQ soft buffer.  The JAX objects are read through
-plain Python and numpy, so this module imports no JAX.
+configuration, the channel description and the HARQ soft buffer.  The
+JAX objects are read through plain Python and numpy, so this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from .models.pusch import PuschConfig
+from .sim.channel import ChannelModel
 
 DECODER_BACKENDS = {"xla": "reference", "pallas": "kernel"}
 FRONTEND_BACKENDS = {"auto": "auto", "xla": "reference", "pallas": "kernel"}
@@ -24,6 +26,11 @@ def config_from_jax(jax_cfg) -> PuschConfig:
     fields["decoder_backend"] = DECODER_BACKENDS[fields["decoder_backend"]]
     fields["frontend_backend"] = FRONTEND_BACKENDS[fields["frontend_backend"]]
     return PuschConfig(**fields)
+
+
+def channel_model_from_jax(jax_model) -> ChannelModel:
+    """The port's ChannelModel for a JAX ``sim.channel.ChannelModel``."""
+    return ChannelModel(**dataclasses.asdict(jax_model))
 
 
 def harq_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""3GPP TS 38.212 LDPC constant tables: lifting sizes and base graphs.
+"""3GPP constant tables: LDPC lifting sizes and base graphs (TS 38.212),
+PUSCH DMRS positions (TS 38.211).
 
 The port's own copy of the part of openairinterface5g_tpu/data/tables.py it
 uses, so that it imports nothing of the JAX package.  ``spec_tables.npz``
@@ -6,7 +7,8 @@ beside this file is a byte copy of that package's file:
   - ``bg1``: (8, 46, 68) int16 — Table 5.3.2-2 shift values per lifting set,
     -1 marks "no edge".
   - ``bg2``: (8, 42, 52) int16 — Table 5.3.2-3.
-tests/test_torch_pusch.py holds every table here against the original.
+tests/test_torch_pusch.py holds the LDPC tables against the original,
+tests/test_torch_sim.py the DMRS positions.
 """
 from __future__ import annotations
 
@@ -59,3 +61,42 @@ def load_base_graph(bg: int, Z: int) -> np.ndarray:
         raise ValueError("bg must be 1 or 2")
     tab = _load_npz()[f"bg{bg}"][lifting_set_index(Z)].astype(np.int32)
     return np.where(tab >= 0, tab % Z, -1).astype(np.int16)
+
+
+# --- PUSCH DMRS symbol positions (TS 38.211 Table 6.4.1.1.3-3) --------------
+# Single-symbol DMRS l-bar positions as symbol bitmasks, rows = ld-3
+# (ld = 4..14, row 0 = ld<4), columns = [typeA pos0..3, typeB pos0..3].
+# TypeA masks exclude l0 (OR'd in by the caller); typeB masks are relative
+# to the allocation start.
+PUSCH_DMRS_POS_L1 = (
+    (-1, -1, -1, -1, 0x001, 0x001, 0x001, 0x001),   # ld < 4
+    (0, 0, 0, 0, 0x001, 0x001, 0x001, 0x001),       # 4
+    (0, 0, 0, 0, 0x001, 0x011, 0x011, 0x011),       # 5
+    (0, 0, 0, 0, 0x001, 0x011, 0x011, 0x011),       # 6
+    (0, 0, 0, 0, 0x001, 0x011, 0x011, 0x011),       # 7
+    (0, 0x080, 0x080, 0x080, 0x001, 0x041, 0x049, 0x049),   # 8
+    (0, 0x080, 0x080, 0x080, 0x001, 0x041, 0x049, 0x049),   # 9
+    (0, 0x200, 0x240, 0x240, 0x001, 0x101, 0x111, 0x249),   # 10
+    (0, 0x200, 0x240, 0x240, 0x001, 0x101, 0x111, 0x249),   # 11
+    (0, 0x200, 0x240, 0x920, 0x001, 0x401, 0x421, 0x249),   # 12
+    (0, 0x800, 0x880, 0x920, 0x001, 0x401, 0x421, 0x249),   # 13
+    (0, 0x800, 0x880, 0x920, 0x001, 0x401, 0x421, 0x249),   # 14
+)
+
+
+def pusch_dmrs_symbols(mapping_type: str, add_pos: int, start_symbol: int,
+                       n_symbols: int, typea_pos: int = 2) -> tuple:
+    """DMRS symbol indices for single-symbol PUSCH DMRS (38.211 6.4.1.1.3).
+
+    mapping_type: 'A' (ld counted from slot start, l0 = typea_pos) or
+    'B' (ld = allocation duration, positions relative to start_symbol)."""
+    ld = (start_symbol + n_symbols) if mapping_type == "A" else n_symbols
+    row = 0 if ld < 4 else ld - 3
+    col = add_pos + (4 if mapping_type == "B" else 0)
+    mask = PUSCH_DMRS_POS_L1[row][col]
+    if mask < 0:
+        raise ValueError(f"invalid DMRS config ld={ld} type{mapping_type}")
+    if mapping_type == "A":
+        mask |= 1 << typea_pos
+        return tuple(s for s in range(14) if (mask >> s) & 1)
+    return tuple(start_symbol + s for s in range(14) if (mask >> s) & 1)

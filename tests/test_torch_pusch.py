@@ -134,8 +134,8 @@ def test_harq_from_numpy():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (tools included) and chip_smoke.py load
-    neither jax nor any module of the JAX package."""
+    """Every module of the port (tools and simulators included) and
+    chip_smoke.py load neither jax nor any module of the JAX package."""
     code = ("import importlib, pkgutil, sys\n"
             "import openairinterface5g_tpu_torch as pkg\n"
             "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
@@ -145,7 +145,9 @@ def test_port_imports_no_jax():
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'openairinterface5g_tpu' or m.startswith('openairinterface5g_tpu.')]\n"
             "assert not bad, bad\n"
-            "assert 'openairinterface5g_tpu_torch.tools.bench_overhead' in sys.modules\n")
+            "assert 'openairinterface5g_tpu_torch.tools.bench_overhead' in sys.modules\n"
+            "for m in ('channel', 'ulsim', 'ldpctest', 'ulschsim', 'dlschsim', 'autotest'):\n"
+            "    assert 'openairinterface5g_tpu_torch.sim.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
