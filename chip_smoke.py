@@ -29,6 +29,13 @@ Drives the port's paths with every hand-written CUDA kernel:
     ulsim points of the conformance matrix (15 kHz, 273 PRB with 8 RX, 2
     layers over TDL-C, 4 layers on the unfused chain, 100 Hz Doppler),
     each with K1 and K3 where its configuration takes them.
+  * slice 8, the rest of the PUSCH chain (PTRS, data on the DMRS symbols,
+    double-symbol DMRS, rate-match patterns, delay-domain estimation,
+    DFT-s-OFDM, the 2-layer ML receiver) and the PDSCH
+    (``models/pdsch.py``, ``sim/dlsim.py``): the gNB slot at full width
+    (the 273-PRB 2-layer DL slot through K3 and K1 beside the UL receiver),
+    misc8's branches at the main path's width through K1 on the unfused
+    chain, and the simulator cases that take them.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -67,6 +74,23 @@ Phases, one line or more each:
      --backend kernel case without K1 (or a reference case with it), and a
      case that K3's ``supported`` admits without K3 (or one it refuses with
      it) fail the run
+  8. slice 8: (a) the gNB slot: pdsch_tx of the 273-PRB MCS-16 2-layer DL
+     batch (B = 8) over the bench's channel into pdsch_rx at 2 UE antennas
+     (K3 and K1), beside the UL pusch_rx of phase 4's configuration: every
+     TB of both must pass CRC and equal the sent bits, K3 must launch for
+     both and K1 too; then the combined slots/s (pdsch_tx + pusch_rx per
+     batch, information only, host-bound), pdsch_tx's ms and its LDPC
+     encode's, beside torch.mul(x, 2)'s host µs;
+     (b) misc8's branches (3 DMRS symbols, cdm_groups_no_data=1, PTRS L=2
+     K=2) at 273 PRB, MCS 16, 2x2, B = 8 through K1: 8/8 TBs, K1 launched,
+     K3 not; its slots/s beside the main path's and its unfused frontend's
+     ms per batch, whole and by stage;
+     (c) SIM_CASES_8 as phase 7 runs its cases (dlsim too: K3 exactly where
+     ``supported`` admits the configuration), then a 2-codeword PDSCH (6
+     layers, 8 RX, 24 PRB, Pdsch2CwConfig's defaults) and a DFT-s-OFDM
+     PUSCH through run_sweep with K1; every call of K3 and K1 in (a) and
+     (b), and each case's first SIM_HELD_CALLS, held against the plain
+     versions
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -76,7 +100,8 @@ Beside ms (CUDA events over back-to-back calls), each row has device_ms
 host_us (the wrapper's enqueue per call, median of 5 windows); K1 layered
 f32 and K3 also carry launches_simulators, their launches in phase 7, and
 held_simulators and max_abs_err_simulators, the calls held against plain
-there and the largest error.
+there and the largest error, and the same for phase 8 under launches_phase8,
+held_phase8 and max_abs_err_phase8.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -91,12 +116,14 @@ import time
 
 import torch
 
-from openairinterface5g_tpu_torch.coding import ldpc
-from openairinterface5g_tpu_torch.models import pusch
+from openairinterface5g_tpu_torch.coding import ldpc, rate_matching
+from openairinterface5g_tpu_torch.models import pdsch, pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
-from openairinterface5g_tpu_torch.sim import autotest, ulsim
+from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
+from openairinterface5g_tpu_torch.sim import autotest, dlsim, ulsim
+from openairinterface5g_tpu_torch.sim.channel import add_noise
 from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
 
 SEED = 1234
@@ -125,6 +152,20 @@ DECODER_EDGES = (
 SIM_CASES = ("ldpctest-BG1-8448", "ulschsim-mcs9", "dlschsim-mcs15",
              "3gpp-04-A5-8-5MHz-2rx", "3gpp-24-A5-14-100MHz-8rx", "3gpp-27-A4-27-2layer-2rx",
              "mimo-5-mcs9-4layer", "ulsim-GFR1A513-doppler100")
+# slice 8's simulator cases: (sim/autotest.py id, flags added to its argv):
+# misc7-misc10 (the re-map branches) and the three dlsim cases as the
+# autotest lists them, misc8 and dlsim-mcs9-106 again with K1, and the
+# nr_ulsim.mimo 2-layer point at MCS 10 (16QAM) with the ML receiver
+SIM_CASES_8 = (("ulsim-misc7-2dmrs", ()), ("ulsim-misc8-3dmrs-ptrs", ()),
+               ("ulsim-misc9-typeB-ptrs", ()), ("ulsim-misc10-typeB-8sym", ()),
+               ("dlsim-mcs9-106", ()), ("dlsim-mcs27-256qam", ()), ("dlsim-csirs-ratematch", ()),
+               ("ulsim-misc8-3dmrs-ptrs", ("--backend", "kernel")),
+               ("dlsim-mcs9-106", ("--backend", "kernel")),
+               ("mimo-3-mcs10-2layer", ("--receiver", "ml")))
+# misc8's branches at the main path's width (phase 8 b)
+MISC8_WIDE = dict(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2, dmrs_symbols=(2, 7, 11),
+                  cdm_groups_no_data=1, ptrs=True, ptrs_l=2, ptrs_k=2,
+                  decoder_backend="kernel", decoder_check_every=1)
 # calls of K3 and of K1 held against their plain versions in each case: the
 # first batch's two HARQ rounds (rv 0, then rv 2 combined into rv 0's
 # buffer), or two batches where a case runs one round
@@ -308,12 +349,10 @@ def phase_main_path(dev, gen, card: str) -> dict:
     cfg, tb, rx, re_grid, g, planes, llr = (rcv.cfg, rcv.tb, rcv.rx, rcv.re_grid, rcv.graph,
                                              rcv.planes, rcv.llr)
 
-    fe.launches = 0
-    for k in ldpc_decoder.launches:
-        ldpc_decoder.launches[k] = 0
+    _reset_counts()
     out = pusch.pusch_rx(cfg, rx, n_iters=N_ITERS)
     torch.cuda.synchronize()
-    launches = {"pusch_frontend": fe.launches, "layered_f32": ldpc_decoder.launches["layered_f32"]}
+    launches = _counts()
     if min(launches.values()) < 1:
         raise AssertionError(f"main path missed a kernel: launches {launches}")
     n_ok = int(out["tb_ok"].sum())
@@ -389,7 +428,7 @@ def phase_main_path(dev, gen, card: str) -> dict:
           f"checks beyond the final one {split['checks']:.4f} ("
           + ", ".join(f"{k}: {v:.4f}" for k, v in split["times"].items()) + ")")
     return {"launches": launches, "errs": errs, "times": times, "bounds": bounds,
-            "device": device, "host": host, "split": split}
+            "device": device, "host": host, "split": split, "slots_per_s": B * 1000.0 / ms}
 
 
 def phase_decoder(dev, gen) -> dict:
@@ -594,8 +633,8 @@ def phase_probes(dev, gen) -> dict:
 
 
 @contextlib.contextmanager
-def _held_to_plain(cid: str, held: dict, lines: list):
-    """While a simulator case runs, its first SIM_HELD_CALLS calls of K3
+def _held_to_plain(cid: str, held: dict, lines: list, limit: int = SIM_HELD_CALLS):
+    """While a simulator case runs, its first `limit` calls of K3
     (``fe.frontend_planes``) and of K1 (``ldpc_decoder.decode``) are held
     against the plain versions on the same inputs: the path's own grids,
     and its rate-recovered, HARQ-combined LLRs at the case's iteration
@@ -608,10 +647,11 @@ def _held_to_plain(cid: str, held: dict, lines: list):
 
     def k3_held(cfg, re_grid):
         planes = k3(cfg, re_grid)
-        if n["pusch_frontend"] < SIM_HELD_CALLS:
+        if n["pusch_frontend"] < limit:
             n["pusch_frontend"] += 1
             tag = (f"{cid} call {n['pusch_frontend']}: mu={cfg.mu} {cfg.n_prb} PRB "
-                   f"{cfg.n_layers}x{cfg.n_rx} window {cfg.chest_window} B={re_grid.shape[0]}")
+                   f"{cfg.n_layers}x{cfg.n_rx} Qm={cfg.qm_rate[0]} window {cfg.chest_window} "
+                   f"B={re_grid.shape[0]}")
             err, line = _k3_err(tag, planes, fe.frontend_planes_plain(cfg, re_grid))
             lines.append(line)
             _note(held, "pusch_frontend", err)
@@ -621,7 +661,7 @@ def _held_to_plain(cid: str, held: dict, lines: list):
         got = k1(g, llr, n_iters, **kw)
         name = ldpc_decoder.kernel_name(kw.get("schedule", "layered"),
                                         kw.get("msg_dtype", torch.float32))
-        if name in n and n[name] < SIM_HELD_CALLS:
+        if name in n and n[name] < limit:
             n[name] += 1
             want = ldpc_decoder.decode_plain(g, llr, n_iters, **kw)
             tag = (f"K1 {name} {cid} call {n[name]}: BG{g.bg} Z={g.Z} x{llr.shape[0]} "
@@ -647,47 +687,248 @@ def _note(held: dict, name: str, err: float) -> None:
     held[name] = (calls + 1, max(worst, err))
 
 
+def _reset_counts() -> None:
+    fe.launches = 0
+    for k in ldpc_decoder.launches:
+        ldpc_decoder.launches[k] = 0
+
+
+def _counts() -> dict:
+    return {"layered_f32": ldpc_decoder.launches["layered_f32"], "pusch_frontend": fe.launches}
+
+
+def _check_kernels(tag: str, k1: int, k3: int, want_k1: bool, want_k3: bool) -> None:
+    got = {"K1": k1 > 0, "K3": k3 > 0}
+    if got != {"K1": want_k1, "K3": want_k3}:
+        raise AssertionError(f"{tag}: kernels launched {got}, its configuration takes "
+                             f"{{'K1': {want_k1}, 'K3': {want_k3}}}")
+
+
+def _sim_cases(cases, held: dict) -> None:
+    """Each (autotest id, added flags) of `cases` through the port's autotest
+    in this process, on the card: its verdict, its K1 (layered f32) and K3
+    launches against what its configuration takes, its first K1 and K3
+    calls held against their plain versions."""
+    table = {c[0]: c[1:4] for c in autotest.CASES}
+    table.update({cid: ("ulsim", argv, "PUSCH test OK")
+                  for cid, argv in autotest.CONFORMANCE_CASES})
+    for cid, extra in cases:
+        module, argv, pass_str = table[cid]
+        argv = [*argv, *extra]
+        name = " ".join([cid, *extra])
+        k1_0, k3_0 = ldpc_decoder.launches["layered_f32"], fe.launches
+        lines = []
+        with _held_to_plain(name, held, lines):
+            r = autotest.judge(cid, module, argv, pass_str, device="cuda")
+        k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
+        where = f"passed at {r.last_snr_db:.2f} dB" if r.status == "PASS" else r.status
+        print(f"simulator {name}: {where} in {r.seconds:.1f} s; first: {r.first_snr_line}; "
+              f"launches K1 {k1}, K3 {k3}")
+        for line in lines:
+            print(f"  {line}")
+        if r.status != "PASS":
+            raise AssertionError(f"simulator {name}: {r.status}\n{r.output}")
+        if module == "ulsim":
+            cfg = ulsim.config(ulsim.parse_args(argv))
+        elif module == "dlsim":
+            cfg = dlsim.config(dlsim.parse_args(argv))[0]
+        else:                                   # codec simulators: the flooding decoder
+            cfg = None
+        _check_kernels(f"simulator {name}", k1, k3,
+                       cfg is not None and cfg.decoder_backend == "kernel",
+                       cfg is not None and fe.supported(cfg))
+
+
 def phase_simulators() -> dict:
     """SIM_CASES through the port's autotest in this process, on the card,
     each case's first K1 and K3 calls held against their plain versions.
     Returns the K1 (layered f32) and K3 launches of the whole phase and,
     per kernel, (calls held, largest error)."""
-    cases = {c[0]: c[1:4] for c in autotest.CASES}
-    cases.update({cid: ("ulsim", argv, "PUSCH test OK")
-                  for cid, argv in autotest.CONFORMANCE_CASES})
     held = {}
-    fe.launches = 0
-    for k in ldpc_decoder.launches:
-        ldpc_decoder.launches[k] = 0
-    for cid in SIM_CASES:
-        module, argv, pass_str = cases[cid]
-        k1_0, k3_0 = ldpc_decoder.launches["layered_f32"], fe.launches
-        lines = []
-        with _held_to_plain(cid, held, lines):
-            r = autotest.judge(cid, module, argv, pass_str, device="cuda")
-        k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
-        where = f"passed at {r.last_snr_db:.2f} dB" if r.status == "PASS" else r.status
-        print(f"simulator {cid}: {where} in {r.seconds:.1f} s; first: {r.first_snr_line}; "
-              f"launches K1 {k1}, K3 {k3}")
-        for line in lines:
-            print(f"  {line}")
-        if r.status != "PASS":
-            raise AssertionError(f"simulator {cid}: {r.status}\n{r.output}")
-        if module == "ulsim":
-            cfg = ulsim.config(ulsim.parse_args(argv))
-            want = {"K1": cfg.decoder_backend == "kernel", "K3": fe.supported(cfg)}
-        else:                                   # codec simulators: the flooding decoder
-            want = {"K1": False, "K3": False}
-        got = {"K1": k1 > 0, "K3": k3 > 0}
-        if got != want:
-            raise AssertionError(f"simulator {cid}: kernels launched {got}, its configuration "
-                                 f"takes {want}")
-    launches = {"layered_f32": ldpc_decoder.launches["layered_f32"], "pusch_frontend": fe.launches}
+    _reset_counts()
+    _sim_cases([(cid, ()) for cid in SIM_CASES], held)
+    launches = _counts()
     if sorted(held) != sorted(launches):
         raise AssertionError(f"simulators: kernels held against plain {sorted(held)}, "
                              f"launched {launches}")
     print(f"simulators: {len(SIM_CASES)} cases passed; launches {launches}; held against "
           f"plain (calls, max abs err): {held}")
+    return {"launches": launches, "held": held}
+
+
+def _bench_channel(tx: torch.Tensor, gen) -> torch.Tensor:
+    """The bench's channel (tools/bench_launch.py::receiver): tx + 0.1 x the
+    antennas flipped + 0.05 x complex noise."""
+    noise = torch.complex(torch.randn(tx.shape, generator=gen, device=tx.device),
+                          torch.randn(tx.shape, generator=gen, device=tx.device))
+    return tx + 0.1 * tx.flip(1) + 0.05 * noise
+
+
+def _decoded(tag: str, out: dict, tb: torch.Tensor) -> None:
+    n_ok = int(out["tb_ok"].sum())
+    if n_ok != tb.shape[0] or not torch.equal(out["tb_bits"], tb):
+        raise AssertionError(f"{tag}: {n_ok}/{tb.shape[0]} TBs pass CRC, bits equal: "
+                             f"{torch.equal(out['tb_bits'], tb)}")
+
+
+def _gnb_slot(dev, gen, held: dict, card: str) -> dict:
+    """Phase 8 (a): the 273-PRB 2-layer DL slot (pdsch_tx, the bench's
+    channel, pdsch_rx at 2 UE antennas) beside phase 4's UL receiver."""
+    rcv = bench_launch.receiver(dev, gen)
+    dl = pdsch.PdschConfig(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2,
+                           decoder_backend="kernel", decoder_check_every=1)
+    tb = torch.randint(0, 2, (B, dl.tbs), generator=gen, device=dev, dtype=torch.int8)
+    tx, _ = pdsch.pdsch_tx(dl, tb)
+    rx = _bench_channel(tx, gen)
+    lines = []
+    _reset_counts()
+    with _held_to_plain("gNB slot", held, lines, limit=2):
+        out_dl = pdsch.pdsch_rx(dl, rx, n_iters=N_ITERS)
+        out_ul = pusch.pusch_rx(rcv.cfg, rcv.rx, n_iters=N_ITERS)
+        torch.cuda.synchronize()
+    launches = _counts()
+    if launches["pusch_frontend"] != 2 or launches["layered_f32"] < 2:
+        raise AssertionError(f"gNB slot: launches {launches}, want K3 twice (DL, UL) and K1")
+    _decoded("gNB slot DL", out_dl, tb)
+    _decoded("gNB slot UL", out_ul, rcv.tb)
+    print(f"gNB slot: DL 273 PRB MCS16 2 layers to 2 UE antennas B={B}: {B}/{B} TBs pass CRC "
+          f"and equal the sent bits; UL {B}/{B}; launches {launches}")
+    for line in lines:
+        print(f"  {line}")
+
+    def step():
+        pdsch.pdsch_tx(dl, tb)
+        return pusch.pusch_rx(rcv.cfg, rcv.rx, n_iters=N_ITERS)
+
+    x = torch.ones((8, 128), device=dev)
+    ms = statistics.median(_time_ms(step, N_TIMED) for _ in range(N_WINDOWS))
+    p, _ = dl.seg_params()
+    g = ldpc.build_graph(p.bg, p.Z)
+    cbs = torch.zeros((B * p.C, p.K), dtype=torch.int8, device=dev)
+    n_cols = rate_matching.tx_cols_needed(g, 0, tuple(dl.cb_e_sizes()), p.F, ncb=dl.ncb())
+    tx_ms, enc_ms = (statistics.median(_time_ms(fn, N_TIMED) for _ in range(N_WINDOWS))
+                     for fn in (lambda: pdsch.pdsch_tx(dl, tb),
+                                lambda: ldpc.encode(g, cbs, n_cols=n_cols)))
+    mul_us = statistics.median(bench_launch.host_us(lambda: torch.mul(x, 2))
+                               for _ in range(N_WINDOWS))
+    print(f"gNB slot (DL pdsch_tx + UL pusch_rx per {B}-slot batch): {B * 1000.0 / ms:.1f} "
+          f"slots/s ({ms:.4f} ms per batch; pdsch_tx alone {tx_ms:.4f}, its LDPC encode of "
+          f"{B * p.C} code blocks {enc_ms:.4f}; CUDA events, medians of {N_WINDOWS} windows of "
+          f"{N_TIMED} batches); torch.mul(x, 2) host {mul_us:.3f} us; host-bound, information "
+          f"only, on {card}")
+    return {"launches": launches, "slots_per_s": B * 1000.0 / ms}
+
+
+def _misc8_wide(dev, gen, held: dict, card: str) -> dict:
+    """Phase 8 (b): misc8's branches at 273 PRB, MCS 16, 2x2, B = 8 through
+    K1 on the unfused chain."""
+    cfg = pusch.PuschConfig(**MISC8_WIDE)
+    if fe.supported(cfg):
+        raise AssertionError("misc8 at width: K3's supported admits a re-map configuration")
+    tb = torch.randint(0, 2, (B, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
+    tx, _ = pusch.pusch_tx(cfg, tb)
+    rx = _bench_channel(tx, gen)
+    lines = []
+    _reset_counts()
+    with _held_to_plain("misc8 at 273 PRB", held, lines, limit=1):
+        out = pusch.pusch_rx(cfg, rx, n_iters=N_ITERS)
+        torch.cuda.synchronize()
+    launches = _counts()
+    _check_kernels("misc8 at 273 PRB", launches["layered_f32"], launches["pusch_frontend"],
+                   True, False)
+    _decoded("misc8 at 273 PRB", out, tb)
+    p, _ = cfg.seg_params()
+    print(f"misc8 at 273 PRB MCS16 2x2 (3 DMRS symbols carrying data, PTRS L=2 K=2) B={B}: "
+          f"{B}/{B} TBs pass CRC and equal the sent bits ({B * p.C} code blocks, G={cfg.G}, "
+          f"TBS {cfg.tbs}); launches {launches}")
+    for line in lines:
+        print(f"  {line}")
+    re_grid = extract_from_grid(cfg.fp, ofdm_demodulate(cfg.fp, rx, cfg.slot))
+    ms = statistics.median(_time_ms(lambda: pusch.pusch_rx(cfg, rx, n_iters=N_ITERS), N_TIMED)
+                           for _ in range(N_WINDOWS))
+    h, nvar = pusch.pusch_channel_estimate(cfg, re_grid)
+    x, mag = pusch.pusch_equalize(cfg, re_grid, h, nvar)
+    stages = {
+        "frontend": lambda: pusch.pusch_frontend(cfg, re_grid),
+        "estimate": lambda: pusch.pusch_channel_estimate(cfg, re_grid),
+        "MMSE on the RE map": lambda: pusch.pusch_equalize(cfg, re_grid, h, nvar),
+        "PTRS, LLRs, descrambling": lambda: pusch.pusch_llrs(cfg, re_grid, x, mag, h),
+    }
+    stage_ms = {k: statistics.median(_time_ms(fn, N_TIMED) for _ in range(N_WINDOWS))
+                for k, fn in stages.items()}
+    print(f"misc8 at 273 PRB: {B * 1000.0 / ms:.1f} slots/s ({ms:.4f} ms per {B}-slot batch, "
+          f"CUDA events, median of {N_WINDOWS} windows of {N_TIMED} batches); its unfused "
+          f"frontend, ms per batch: " + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+          + f"; on {card}")
+    return {"launches": launches, "slots_per_s": B * 1000.0 / ms}
+
+
+def _pdsch_2cw(dev, gen, held: dict) -> dict:
+    """Phase 8 (c): a 2-codeword PDSCH round trip through K1 (Pdsch2CwConfig's
+    defaults: 24 PRB, MCS 9 + 9, 6 layers, 8 RX, double-symbol DMRS)."""
+    cfg = pdsch.Pdsch2CwConfig(decoder_backend="kernel")
+    c0, c1 = cfg.cw_cfgs()
+    tbs = [torch.randint(0, 2, (B, c.tbs), generator=gen, device=dev, dtype=torch.int8)
+           for c in (c0, c1)]
+    tx = pdsch.pdsch2cw_tx(cfg, *tbs)
+    H = (torch.eye(cfg.n_rx, cfg.n_layers, dtype=torch.complex64, device=dev)
+         + 0.1 * torch.complex(torch.randn((cfg.n_rx, cfg.n_layers), generator=gen, device=dev),
+                               torch.randn((cfg.n_rx, cfg.n_layers), generator=gen, device=dev)))
+    rx = torch.einsum("rl,bls->brs", H, tx)
+    rx = add_noise(gen, rx, ulsim.noise_variance(c0, tx, 20.0))
+    lines = []
+    k1_0, k3_0 = ldpc_decoder.launches["layered_f32"], fe.launches
+    with _held_to_plain("2-codeword PDSCH", held, lines):
+        outs = pdsch.pdsch2cw_rx(cfg, rx, n_iters=15)
+    k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
+    for i, (out, tb) in enumerate(zip(outs, tbs)):
+        _decoded(f"2-codeword PDSCH codeword {i}", out, tb)
+    _check_kernels("2-codeword PDSCH", k1, k3, True, False)
+    print(f"simulator 2-codeword PDSCH 6 layers 8 RX 24 PRB MCS 9 + 9 at 20 dB: {B}/{B} TBs of "
+          f"each codeword pass CRC and equal the sent bits; launches K1 {k1}, K3 {k3}")
+    for line in lines:
+        print(f"  {line}")
+
+
+def _dft_s_ofdm(dev, held: dict) -> None:
+    """Phase 8 (c): a DFT-s-OFDM PUSCH (ulsim-mcs9-sc-fdma's operating point,
+    75 PRB, MCS 9, 7 dB, 64 trials) through run_sweep with K1."""
+    cfg = pusch.PuschConfig(mu=1, n_prb=75, mcs=9, transform_precoding=True,
+                            decoder_backend="kernel")
+    lines = []
+    k1_0, k3_0 = ldpc_decoder.launches["layered_f32"], fe.launches
+    with _held_to_plain("DFT-s-OFDM", held, lines):
+        res, ok = ulsim.run_sweep(cfg, [7.0], 64, 64, eff_tp_check=99.0, verbose=False,
+                                  device=dev)
+    k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
+    print(f"simulator DFT-s-OFDM 75 PRB MCS 9 1x1 at 7 dB: BLER {res[-1]['bler']:.6f}, "
+          f"eff TP {res[-1]['eff_throughput_pct']:.2f}% over {res[-1]['trials']} trials; "
+          f"launches K1 {k1}, K3 {k3}")
+    for line in lines:
+        print(f"  {line}")
+    if not ok:
+        raise AssertionError("DFT-s-OFDM: below 99 % effective throughput at 7 dB")
+    _check_kernels("DFT-s-OFDM", k1, k3, True, False)
+
+
+def phase_slice8(dev, gen, card: str, main_slots_per_s: float) -> dict:
+    """Phase 8: the gNB slot, misc8's branches at width, the simulator cases."""
+    held = {}
+    gnb = _gnb_slot(dev, gen, held, card)
+    wide = _misc8_wide(dev, gen, held, card)
+    _reset_counts()
+    _sim_cases(SIM_CASES_8, held)
+    _pdsch_2cw(dev, gen, held)
+    _dft_s_ofdm(dev, held)
+    sims = _counts()
+    launches = {k: gnb["launches"][k] + wide["launches"][k] + sims[k] for k in sims}
+    if sorted(held) != sorted(launches):
+        raise AssertionError(f"phase 8: kernels held against plain {sorted(held)}, "
+                             f"launched {launches}")
+    print(f"phase 8: gNB slot {gnb['slots_per_s']:.1f} slots/s, misc8 at 273 PRB "
+          f"{wide['slots_per_s']:.1f} slots/s (the main path in phase 4: "
+          f"{main_slots_per_s:.1f}); {len(SIM_CASES_8) + 2} simulator cases passed; "
+          f"launches {launches}; held against plain (calls, max abs err): {held}")
     return {"launches": launches, "held": held}
 
 
@@ -712,6 +953,7 @@ def main() -> None:
     decoder = phase_decoder(dev, gen)
     probes = phase_probes(dev, gen)
     sims = phase_simulators()
+    slice8 = phase_slice8(dev, gen, smi_line, main_path["slots_per_s"])
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -722,6 +964,9 @@ def main() -> None:
                               launches_simulators=sims["launches"][name],
                               held_simulators=sims["held"][name][0],
                               max_abs_err_simulators=sims["held"][name][1],
+                              launches_phase8=slice8["launches"][name],
+                              held_phase8=slice8["held"][name][0],
+                              max_abs_err_phase8=slice8["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

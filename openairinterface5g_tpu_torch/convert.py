@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.pdsch import Pdsch2CwConfig, PdschConfig
 from .models.pusch import PuschConfig
 from .sim.channel import ChannelModel
 
@@ -19,13 +20,19 @@ DECODER_BACKENDS = {"xla": "reference", "pallas": "kernel"}
 FRONTEND_BACKENDS = {"auto": "auto", "xla": "reference", "pallas": "kernel"}
 
 
-def config_from_jax(jax_cfg) -> PuschConfig:
-    """The port's PuschConfig for a JAX ``models.pusch.PuschConfig``; the
-    backend names map xla -> reference and pallas -> kernel."""
+_CONFIGS = {"PuschConfig": PuschConfig, "PdschConfig": PdschConfig,
+            "Pdsch2CwConfig": Pdsch2CwConfig}
+
+
+def config_from_jax(jax_cfg):
+    """The port's configuration for a JAX ``PuschConfig``, ``PdschConfig`` or
+    ``Pdsch2CwConfig`` (the port's class of the same name); the backend
+    names map xla -> reference and pallas -> kernel."""
     fields = dataclasses.asdict(jax_cfg)
     fields["decoder_backend"] = DECODER_BACKENDS[fields["decoder_backend"]]
-    fields["frontend_backend"] = FRONTEND_BACKENDS[fields["frontend_backend"]]
-    return PuschConfig(**fields)
+    if "frontend_backend" in fields:
+        fields["frontend_backend"] = FRONTEND_BACKENDS[fields["frontend_backend"]]
+    return _CONFIGS[type(jax_cfg).__name__](**fields)
 
 
 def channel_model_from_jax(jax_model) -> ChannelModel:

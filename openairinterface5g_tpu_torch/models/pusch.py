@@ -1,21 +1,28 @@
 """PUSCH end-to-end chain: UE TX -> gNB RX.
 
-Port of openairinterface5g_tpu/models/pusch.py for the rectangular CP-OFDM
-allocation with single-symbol DMRS:
+Port of openairinterface5g_tpu/models/pusch.py, CP-OFDM and DFT-s-OFDM:
 
   TX: CRC -> segmentation -> LDPC encode -> rate match -> scramble ->
-      modulate -> layer map -> DMRS -> RE map -> IFFT
-  RX: FFT -> [fused frontend kernel | channel estimation -> MRC/MMSE ->
-      LLR -> descramble] -> rate recovery -> LDPC decode -> CRC
+      modulate -> [DFT spread] -> layer map -> RE map (data, PTRS, DMRS)
+      -> IFFT
+  RX: FFT -> [fused frontend kernel | channel estimation -> MRC/MMSE/ZF
+      or 2-layer ML -> PTRS phase tracking -> LLR -> descramble] -> rate
+      recovery -> LDPC decode -> CRC
 
 Tensors keep the JAX package's layouts: (B, n_rx, symbols, n_sc_bwp) RE
 grids, (B, qm, G/qm) bit planes, a (B, C, cols*Z) mother-code buffer.  The
-slot batch is the leading dimension.  Branches of the JAX model that are
-not ported yet raise NotImplementedError naming their ROADMAP.md item.
+slot batch is the leading dimension.  A rectangular allocation is written
+and read as symbol blocks; PTRS holes, data on the free comb of the DMRS
+symbols and rate-match patterns take the RE map (``data_re_map``), built
+once per configuration and kept on the device with the configuration's
+other constants (``_consts``).  UCI on PUSCH and ``decoder_first_iters``
+raise NotImplementedError naming their ROADMAP.md entries.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,6 +37,9 @@ from ..phy import equalization as eq
 from ..phy import llr as llr_mod
 from ..phy import modulation as mod
 from ..phy import refsig
+from ..phy import transform_precoding as tp
+from ..phy.hopping import group_sequence_uv
+from ..phy.ml_detector import ml_llrs_2layer
 from ..phy.ofdm import extract_from_grid, map_to_grid, ofdm_demodulate, ofdm_modulate
 from ..phy.scrambling import pusch_cinit, scramble, scramble_llrs
 from ..transport import compute_tbs, mcs_to_qm_rate
@@ -66,18 +76,23 @@ class PuschConfig:
                                      # iterations (ops/ldpc_decoder.py)
     llr_quant_bits: int = 0          # 0 = float; 8 = int8 reference parity
     chest_window: int = 8            # pilot smoothing window
-    chest_mode: str = "window"       # 'window' ('delay' not ported yet)
-    ptrs: bool = False
-    ptrs_k: int = 2
-    ptrs_l: int = 1
+    chest_mode: str = "window"       # 'window' | 'delay' (delay-domain denoise)
+    ptrs: bool = False               # phase-tracking RS (TS 38.211 §6.4.1.2)
+    ptrs_k: int = 2                  # K_PTRS: one subcarrier every K PRBs
+    ptrs_l: int = 1                  # L_PTRS time density (1/2/4)
     ptrs_re_offset: int = 0
-    dmrs_max_len: int = 1
+    dmrs_max_len: int = 1            # 2 = double-symbol DMRS (ports 0..7);
+                                     # dmrs_symbols then lists consecutive pairs
     dmrs_port0: int = 0              # first DMRS port
-    cdm_groups_no_data: int = 2      # 2 = DMRS symbols carry no data
+    cdm_groups_no_data: int = 2      # 2 = DMRS symbols carry no data; 1 = data
+                                     # on the odd comb of each DMRS symbol
     scrambling_q: int = 0            # codeword index q
     tbs_lbrm: int | None = None      # LBRM reference TBS (38.212 5.4.2.1)
-    receiver: str = "linear"         # 'linear' ('ml' not ported yet)
-    rm_res: tuple = ()               # rate-match pattern REs (not ported yet)
+    receiver: str = "linear"         # 'linear' (MRC/MMSE/ZF) | 'ml' (2-layer
+                                     # joint max-log, phy/ml_detector.py)
+    rm_res: tuple = ()               # rate-match pattern: ((symbol, sc), ...)
+                                     # REs taken from data, sc relative to the
+                                     # allocation start (e.g. a CSI-RS)
 
     def __post_init__(self):
         if self.decoder_backend not in _DECODER_BACKENDS:
@@ -110,16 +125,47 @@ class PuschConfig:
                      if s not in self.dmrs_symbols)
 
     @property
+    def ptrs_symbol_flags(self) -> tuple:
+        """Per data symbol: carries PTRS.  Every L_PTRS symbols, the counter
+        restarting at each DMRS symbol (TS 38.211 Table 6.4.1.2.2.1-1)."""
+        if not self.ptrs:
+            return tuple(False for _ in self.data_symbols)
+        flags = []
+        l_ref = self.start_symbol
+        for s in range(self.start_symbol, self.start_symbol + self.n_symbols):
+            if s in self.dmrs_symbols:
+                l_ref = s
+                continue
+            flags.append((s - l_ref) % self.ptrs_l == 0)
+        return tuple(flags)
+
+    def ptrs_rel_sc(self) -> np.ndarray:
+        """PTRS subcarriers relative to the allocation start."""
+        return refsig.ptrs_sc_indices(self.n_prb, self.ptrs_k, self.ptrs_re_offset)
+
+    @property
     def uses_re_map(self) -> bool:
         """True when data REs are not a rectangle (PTRS holes, data on the
         free comb of DMRS symbols, or a rate-match pattern)."""
         return self.ptrs or self.cdm_groups_no_data == 1 or bool(self.rm_res)
 
+    def data_re_map(self) -> tuple[np.ndarray, np.ndarray]:
+        """(symbol_ids, sc_ids) int64 of the data REs in mapping order
+        (symbol, then subcarrier), sc relative to the allocation start:
+        without the PTRS REs (data is rate-matched around them, TS 38.211
+        §6.4.1.2.2) and the rm_res REs, and with cdm_groups_no_data == 1 with
+        the odd (CDM group 1) comb of each DMRS symbol."""
+        return _data_re_map(self)
+
     @property
     def n_data_re(self) -> int:
-        if self.ptrs or self.rm_res:
-            _check_ported(self)
+        """Data REs in the slot (with the free comb of the DMRS symbols when
+        one CDM group is reserved, without PTRS and rm_res REs)."""
+        if self.rm_res:
+            return len(self.data_re_map()[0])
         n = len(self.data_symbols) * 12 * self.n_prb
+        if self.ptrs:
+            n -= sum(self.ptrs_symbol_flags) * len(self.ptrs_rel_sc())
         if self.cdm_groups_no_data == 1:
             n += len(self.dmrs_symbols) * 6 * self.n_prb
         return n
@@ -153,11 +199,16 @@ class PuschConfig:
         return min(n_full, (n_ref // p.Z) * p.Z)
 
     def dmrs_pilot_np(self, symbol: int) -> np.ndarray:
-        """(6*n_prb,) CP-OFDM DMRS pilots of a DMRS symbol (host constant)."""
-        if self.transform_precoding:
-            _check_ported(self)
-        cinit = refsig.dmrs_cinit(self.slot, symbol, self.n_id)
-        return refsig.dmrs_sequence_np(cinit, 6 * self.n_prb)
+        """(6*n_prb,) DMRS pilots of a DMRS symbol (host constant): CP-OFDM,
+        Gold-seeded QPSK (TS 38.211 §6.4.1.1.1.1); transform precoding, the
+        low-PAPR sequence r_{u,v} with group or sequence hopping
+        (§6.4.1.1.1.2)."""
+        if not self.transform_precoding:
+            cinit = refsig.dmrs_cinit(self.slot, symbol, self.n_id)
+            return refsig.dmrs_sequence_np(cinit, 6 * self.n_prb)
+        u, v = group_sequence_uv(self.n_id, self.group_seq_hopping, self.slot,
+                                 hop=0, m_zc=6 * self.n_prb)
+        return refsig.low_papr_sequence(u, v, 6 * self.n_prb)
 
     def cb_e_sizes(self, g_total: int | None = None) -> list[int]:
         """Per-code-block rate-matched lengths E_j (TS 38.212 §5.4.2.1)."""
@@ -171,39 +222,108 @@ class PuschConfig:
 
 
 def _check_ported(cfg: PuschConfig, uci_cfg=None) -> None:
-    """Raise for the JAX model's branches that this port does not run yet."""
-    missing = [
-        (uci_cfg is not None, "UCI on PUSCH", 7),
-        (cfg.transform_precoding, "transform precoding (DFT-s-OFDM)", 7),
-        (cfg.receiver != "linear", f"receiver={cfg.receiver!r}", 7),
-        (cfg.ptrs, "PTRS", 3),
-        (bool(cfg.rm_res), "rate-match patterns (rm_res)", 3),
-        (cfg.cdm_groups_no_data != 2, "data on the DMRS symbols (cdm_groups_no_data=1)", 3),
-        (cfg.dmrs_max_len != 1, "double-symbol DMRS", 3),
-        (cfg.chest_mode != "window", f"chest_mode={cfg.chest_mode!r}", 3),
-    ]
-    for hit, what, item in missing:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+    """Raise for the JAX model's branches that this port does not run."""
+    if uci_cfg is not None:
+        raise NotImplementedError(
+            "UCI on PUSCH is not ported yet: ROADMAP.md Queue 1 item 7")
     if cfg.decoder_first_iters:
         raise NotImplementedError(
             "decoder_first_iters (two-phase decode) is not carried into the port: "
             "ROADMAP.md 'Not carried into the port'")
 
 
+def _check_branches(cfg: PuschConfig) -> None:
+    """The combinations the JAX model asserts against."""
+    if cfg.transform_precoding and (cfg.n_layers != 1 or cfg.uses_re_map):
+        raise ValueError("transform precoding takes one layer and a rectangular "
+                         "allocation (no PTRS, data on DMRS symbols or rm_res)")
+    if cfg.receiver == "ml" and (cfg.n_layers != 2 or cfg.uses_re_map
+                                 or cfg.transform_precoding):
+        raise ValueError("receiver='ml' is the 2-layer rectangular PUSCH")
+
+
+@functools.lru_cache(maxsize=64)
+def _data_re_map(cfg: PuschConfig) -> tuple[np.ndarray, np.ndarray]:
+    """PuschConfig.data_re_map: a mask of the slot's allocation, read in
+    row-major (symbol, subcarrier) order."""
+    M = 12 * cfg.n_prb
+    mask = np.zeros((cfg.start_symbol + cfg.n_symbols, M), bool)
+    flags = dict(zip(cfg.data_symbols, cfg.ptrs_symbol_flags))
+    ptrs_sc = cfg.ptrs_rel_sc() if cfg.ptrs else np.zeros(0, np.int32)
+    for s in range(cfg.start_symbol, cfg.start_symbol + cfg.n_symbols):
+        if s in cfg.dmrs_symbols:
+            if cfg.cdm_groups_no_data == 1:
+                mask[s, 1::2] = True
+            continue
+        mask[s] = True
+        if flags[s]:
+            mask[s, ptrs_sc[ptrs_sc < M]] = False
+    for s, m in cfg.rm_res:
+        if 0 <= s < mask.shape[0] and 0 <= m < M:
+            mask[s, m] = False
+    sym_ids, sc_ids = np.nonzero(mask)
+    return sym_ids.astype(np.int64), sc_ids.astype(np.int64)
+
+
 def _dmrs_rows(cfg: PuschConfig) -> np.ndarray:
-    """(L, n_dmrs, 12*n_prb) complex64: each layer's DMRS symbols
-    (pilots x frequency OCC on the port's comb, zeros elsewhere)."""
+    """(L, n_dmrs, 12*n_prb) complex64: each layer's DMRS symbols (pilots x
+    frequency OCC x, double-symbol, the time OCC of the symbol's place in
+    its pair, on the port's comb; zeros elsewhere)."""
     M = 12 * cfg.n_prb
     dm = np.zeros((cfg.n_layers, len(cfg.dmrs_symbols), M), np.complex64)
     for si, s in enumerate(cfg.dmrs_symbols):
         pil = cfg.dmrs_pilot_np(s)
         for lay in range(cfg.n_layers):
-            wf, delta = refsig.dmrs_type1_port_weights(cfg.dmrs_port0 + lay)
+            port = cfg.dmrs_port0 + lay
+            if cfg.dmrs_max_len == 2:
+                wf, wt, delta = refsig.dmrs_type1_port_weights_double(port)
+                tw = complex(wt[si % 2])
+            else:
+                wf, delta = refsig.dmrs_type1_port_weights(port)
+                tw = 1.0
             sc = refsig.dmrs_type1_sc_indices(cfg.n_prb, delta)
-            dm[lay, si, sc] = pil * np.tile(wf, 3 * cfg.n_prb)
+            dm[lay, si, sc] = pil * np.tile(wf, 3 * cfg.n_prb) * tw
     return dm
+
+
+class _Consts(NamedTuple):
+    """A configuration's constants on one device."""
+    dmrs_rows: torch.Tensor      # (L, n_dmrs, M) complex64 (_dmrs_rows)
+    dmrs_combs: tuple            # per layer: (n_pil,) long, its DMRS comb
+    pilots: dict                 # DMRS symbol -> (6*n_prb,) complex64
+    re_sym: torch.Tensor         # (N,) long: data REs' symbols (data_re_map)
+    re_sc: torch.Tensor          # (N,) long: their subcarriers in the allocation
+    re_pos: torch.Tensor         # (N,) long: symbol - start_symbol
+    ptrs_syms: torch.Tensor      # (n_p,) long: the data symbols carrying PTRS
+    ptrs_sc: torch.Tensor        # (K,) long: PTRS subcarriers in the allocation
+    ptrs_pilots: torch.Tensor    # (n_p, K) complex64: each PTRS symbol's pilots
+
+
+@functools.lru_cache(maxsize=64)
+def _consts(cfg: PuschConfig, device: torch.device) -> _Consts:
+    """The host constants of `cfg` (DMRS rows and pilots, the RE map, PTRS
+    positions and pilots), built once per configuration and device."""
+    def on(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    combs = []
+    for lay in range(cfg.n_layers):
+        delta = refsig.dmrs_type1_port_weights((cfg.dmrs_port0 + lay) % 4)[1]
+        combs.append(on(refsig.dmrs_type1_sc_indices(cfg.n_prb, delta), torch.long))
+    sym_ids, sc_ids = (cfg.data_re_map() if cfg.uses_re_map
+                       else (np.zeros(0, np.int64), np.zeros(0, np.int64)))
+    p_syms = [s for s, f in zip(cfg.data_symbols, cfg.ptrs_symbol_flags) if f]
+    psc = cfg.ptrs_rel_sc() if cfg.ptrs else np.zeros(0, np.int32)
+    p_pil = np.zeros((len(p_syms), len(psc)), np.complex64)
+    for i, s in enumerate(p_syms):      # DMRS-seeded per symbol, single PTRS port
+        p_pil[i] = refsig.dmrs_sequence_np(refsig.dmrs_cinit(cfg.slot, s, cfg.n_id), len(psc))
+    return _Consts(
+        dmrs_rows=on(_dmrs_rows(cfg)), dmrs_combs=tuple(combs),
+        pilots={s: on(cfg.dmrs_pilot_np(s)) for s in cfg.dmrs_symbols},
+        re_sym=on(sym_ids, torch.long), re_sc=on(sc_ids, torch.long),
+        re_pos=on(sym_ids - cfg.start_symbol, torch.long),
+        ptrs_syms=on(p_syms, torch.long), ptrs_sc=on(psc, torch.long),
+        ptrs_pilots=on(p_pil))
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +334,7 @@ def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0):
     """(B, TBS) payload bits -> ((B, L, symbols, n_sc_bwp) RE grid,
     (B, G) scrambled codeword bits)."""
     _check_ported(cfg)
+    _check_branches(cfg)
     p, crc_name = cfg.seg_params()
     qm, _ = cfg.qm_rate
     B, dev = tb_bits.shape[0], tb_bits.device
@@ -225,16 +346,28 @@ def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0):
     cw = ldpc.encode(g, cbs.reshape(B * p.C, p.K), n_cols=n_cols).reshape(B, p.C, -1)
     codeword = rate_matching.fused_rate_match_tx(g, cw, rv, es, qm, p.F, ncb=cfg.ncb())
     scrambled = scramble(codeword, pusch_cinit(cfg.rnti, cfg.scrambling_q, cfg.n_id))
-    layers = mod.layer_map(mod.modulate(scrambled, qm), cfg.n_layers)   # (B, L, S*M)
+    syms = mod.modulate(scrambled, qm)                  # (B, G/qm)
+    if cfg.transform_precoding:
+        syms = tp.dft_spread(syms, 12 * cfg.n_prb)
+    layers = mod.layer_map(syms, cfg.n_layers)          # (B, L, G/(qm L))
 
-    fp = cfg.fp
+    fp, k = cfg.fp, _consts(cfg, dev)
     M, a0 = 12 * cfg.n_prb, cfg.sc0
     grid_re = torch.zeros((B, cfg.n_layers, fp.symbols_per_slot, fp.n_sc),
                           dtype=torch.complex64, device=dev)
-    grid_re[:, :, list(cfg.data_symbols), a0: a0 + M] = layers.reshape(
-        B, cfg.n_layers, len(cfg.data_symbols), M)
-    grid_re[:, :, list(cfg.dmrs_symbols), a0: a0 + M] = torch.as_tensor(
-        _dmrs_rows(cfg), device=dev)
+    if not cfg.uses_re_map:
+        grid_re[:, :, list(cfg.data_symbols), a0: a0 + M] = layers.reshape(
+            B, cfg.n_layers, len(cfg.data_symbols), M)
+        grid_re[:, :, list(cfg.dmrs_symbols), a0: a0 + M] = k.dmrs_rows
+        return grid_re, scrambled
+    # RE map: data in (symbol, subcarrier) order, then the PTRS pilots on
+    # layer 0, then each layer's DMRS comb (written last, as in the JAX model)
+    grid_re[:, :, k.re_sym, k.re_sc + a0] = layers
+    if cfg.ptrs:
+        grid_re[:, 0, k.ptrs_syms[:, None], k.ptrs_sc[None, :] + a0] = k.ptrs_pilots
+    for si, s in enumerate(cfg.dmrs_symbols):
+        for lay, sc in enumerate(k.dmrs_combs):
+            grid_re[:, lay, s, sc + a0] = k.dmrs_rows[lay, si, sc]
     return grid_re, scrambled
 
 
@@ -263,20 +396,36 @@ def pusch_rx(cfg: PuschConfig, rx_samples: torch.Tensor, rv: int = 0,
                          harq_buffers=harq_buffers, uci_cfg=uci_cfg)
 
 
+def _smooth(cfg: PuschConfig, hp: torch.Tensor) -> torch.Tensor:
+    """Pilot-domain smoothing: delay-domain truncation or the moving average."""
+    if cfg.chest_mode == "delay":
+        return ce.delay_domain_denoise(hp)
+    return ce.freq_average(hp, window=cfg.chest_window)
+
+
 def pusch_channel_estimate(cfg: PuschConfig, re_grid: torch.Tensor,
                            n_ports: int | None = None):
     """LS channel estimation at the DMRS REs -> ((B, R, P, M) h, (B,) nvar).
 
     LS per DMRS symbol averaged over the symbols (block fading), CDM
-    separation of the ports sharing a comb, moving-average smoothing and
-    comb-2 interpolation.  n_ports overrides the estimated port count.
+    separation of the ports sharing a comb (the frequency OCC; with
+    double-symbol DMRS the time OCC across each symbol pair too), smoothing
+    (moving average or delay-domain truncation) and comb-2 interpolation.
+    n_ports overrides the estimated port count (one joint estimate over two
+    codewords' layers).
     """
-    _check_ported(cfg)
     M, a0 = 12 * cfg.n_prb, cfg.sc0
     P = cfg.n_layers if n_ports is None else n_ports
     ports = list(range(cfg.dmrs_port0, cfg.dmrs_port0 + P))
-    n_d = len(cfg.dmrs_symbols)
-    dev = re_grid.device
+    double = cfg.dmrs_max_len == 2
+    if double:
+        if len(cfg.dmrs_symbols) % 2:
+            raise ValueError("double-symbol DMRS needs symbol pairs")
+        groups = [tuple(cfg.dmrs_symbols[i: i + 2])
+                  for i in range(0, len(cfg.dmrs_symbols), 2)]
+    else:
+        groups = [(s,) for s in cfg.dmrs_symbols]
+    pilots = _consts(cfg, re_grid.device).pilots
 
     def delta_of(p):
         return refsig.dmrs_type1_port_weights(p % 4)[1]
@@ -286,51 +435,119 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: torch.Tensor,
     for delta in sorted({delta_of(p) for p in ports}):
         g_ports = [p for p in ports if delta_of(p) == delta]
         sc = torch.as_tensor(refsig.dmrs_type1_sc_indices(cfg.n_prb, delta) + a0,
-                             dtype=torch.long, device=dev)
-        ls_syms = [ce.ls_estimate(re_grid[:, :, s, :][..., sc],
-                                  torch.as_tensor(cfg.dmrs_pilot_np(s), device=dev))
-                   for s in cfg.dmrs_symbols]            # each (B, R, n_pil)
-        ls = sum(ls_syms) / n_d
-        if P > 1 or len(g_ports) > 1:
-            # CDM separation: the ports differ by the OCC sign on odd pilots
+                             dtype=torch.long, device=re_grid.device)
+        # LS per symbol of each group, shared by the group's ports
+        ls_groups = [[ce.ls_estimate(re_grid[:, :, s, :][..., sc], pilots[s]) for s in grp]
+                     for grp in groups]                  # each (B, R, n_pil)
+        if not double and (P > 1 or len(g_ports) > 1):
+            # vectorized CDM separation: the ports differ by the OCC sign on
+            # odd pilots
             wf1 = torch.as_tensor([refsig.dmrs_type1_port_weights(p % 4)[0][1]
-                                   for p in g_ports], device=dev)
+                                   for p in g_ports], device=re_grid.device)
+            ls = sum(ls_t[0] for ls_t in ls_groups) / len(ls_groups)
             pairs = 0.5 * (ls[..., None, 0::2] + wf1[:, None] * ls[..., None, 1::2])
             dd = pairs[..., 1:] - pairs[..., :-1]
-            # pairs average n_d symbols: scale back to the per-symbol variance
-            nvar_terms.append(torch.mean(dd.abs() ** 2, dim=-1) * n_d)
-            hp = pairs.repeat_interleave(2, dim=-1)      # (B, R, Pg, n_pil)
-        else:
-            nvar_terms += [ce.noise_variance(None, l, None)[..., None] for l in ls_syms]
-            hp = ls
-        hs = ce.comb2_interpolate(ce.freq_average(hp, window=cfg.chest_window), M, delta)
-        if hs.dim() == 3:
-            hs = hs[:, :, None]
-        for i, p in enumerate(g_ports):
-            h_by_port[p] = hs[:, :, i]
+            # pairs average the DMRS symbols: scale back to the per-symbol variance
+            nvar_terms.append(torch.mean(dd.abs() ** 2, dim=-1) * len(ls_groups))
+            hs = ce.comb2_interpolate(_smooth(cfg, pairs.repeat_interleave(2, dim=-1)),
+                                      M, delta)          # (B, R, Pg, M)
+            for i, p in enumerate(g_ports):
+                h_by_port[p] = hs[:, :, i]
+            continue
+        # per port: the time OCC over each pair (double), then the
+        # frequency OCC; the noise term from the separated pairs
+        for p in g_ports:
+            if double:
+                wf, wt, _ = refsig.dmrs_type1_port_weights_double(p)
+            else:
+                wf, _ = refsig.dmrs_type1_port_weights(p)
+                wt = np.array([1.0], np.float32)
+            hp_groups = []
+            for ls_t in ls_groups:
+                ls = sum(l * float(wt[li]) for li, l in enumerate(ls_t)) / len(ls_t)
+                if P > 1 or double:
+                    pair = 0.5 * (ls[..., 0::2] + float(wf[1]) * ls[..., 1::2])
+                    d = pair[..., 1:] - pair[..., :-1]
+                    nvar_terms.append(torch.mean(d.abs() ** 2, dim=-1)[..., None])
+                    hp_groups.append(pair)
+                else:
+                    nvar_terms.append(ce.noise_variance(None, ls, None)[..., None])
+                    hp_groups.append(ls)
+            hp = sum(hp_groups) / len(hp_groups)
+            if P > 1 or double:
+                hp = hp.repeat_interleave(2, dim=-1)
+            h_by_port[p] = ce.comb2_interpolate(_smooth(cfg, hp), M, delta)
     h_est = torch.stack([h_by_port[p] for p in ports], dim=2)
     nvar = torch.cat(nvar_terms, dim=-1).mean(dim=(-2, -1))
     return h_est, nvar
 
 
 def pusch_equalize(cfg: PuschConfig, re_grid: torch.Tensor, h_est, nvar):
-    """Equalize the data REs -> (x (B, P, S, M), mag (B, P, S, M))."""
+    """Equalize the data REs -> (x, mag): (B, P, S, M) symbol blocks for a
+    rectangular allocation (DFT-despread with transform precoding), (B, P, N)
+    per data RE of the RE map (block fading: h depends on the subcarrier
+    only)."""
     M, a0 = 12 * cfg.n_prb, cfg.sc0
+    P = h_est.shape[2]
+    if cfg.uses_re_map:
+        k = _consts(cfg, re_grid.device)
+        y = re_grid[:, :, k.re_sym, k.re_sc + a0]          # (B, R, N)
+        h_re = h_est[..., k.re_sc]                          # (B, R, P, N)
+        if P == 1:
+            x, mag = eq.mrc_compensate(h_re[:, :, 0, :], y)
+            return x[:, None], mag[:, None]
+        if P == 2:
+            return eq.mmse_equalize_2layer(h_re, y, nvar[:, None])
+        return eq.zf_equalize(h_re, y, nvar[:, None, None, None])
     y = re_grid[:, :, list(cfg.data_symbols), a0: a0 + M]   # (B, R, S, M)
-    if h_est.shape[2] == 1:
-        x, mag = _mrc_over_syms(h_est[:, :, 0, :], y)
-        return x[:, None], mag[:, None]
-    return _mmse_over_syms(h_est, y, nvar)
+    if P > 1:
+        return _mmse_over_syms(h_est, y, nvar)
+    x, mag = _mrc_over_syms(h_est[:, :, 0, :], y)
+    if cfg.transform_precoding:
+        B, S = x.shape[:2]
+        xd, md = tp.idft_despread(x.reshape(B, S * M), mag.reshape(B, S * M), M)
+        x, mag = xd.reshape(B, S, M), md.reshape(B, S, M)
+    return x[:, None], mag[:, None]
 
 
-def pusch_llrs(cfg: PuschConfig, x, mag) -> torch.Tensor:
-    """Compensated symbols (B, L, S, M) -> descrambled codeword LLRs (B, G)."""
+def _ptrs_phases(cfg: PuschConfig, re_grid: torch.Tensor, h_est: torch.Tensor) -> torch.Tensor:
+    """(B, n_symbols) common-phase phasors exp(-j phi), one per symbol of the
+    allocation: from each PTRS symbol's correlation with layer 0's channel
+    and pilots, summed over the antennas; held forward to the next PTRS
+    symbol, leading symbols take the first."""
+    k = _consts(cfg, re_grid.device)
+    a0 = cfg.sc0
+    hp = h_est[:, :, 0, :][..., k.ptrs_sc]                  # (B, R, K)
+    yp = re_grid[:, :, k.ptrs_syms[:, None], k.ptrs_sc[None, :] + a0]   # (B, R, n_p, K)
+    z = torch.sum(yp * torch.conj(hp[:, :, None] * k.ptrs_pilots), dim=(1, 3))  # (B, n_p)
+    cur = torch.conj(z / torch.clamp(z.abs(), min=1e-12))
+    # the phasor of each allocation symbol: the last PTRS symbol at or before
+    # it, else the first
+    syms = np.arange(cfg.start_symbol, cfg.start_symbol + cfg.n_symbols)
+    p_syms = np.array([s for s, f in zip(cfg.data_symbols, cfg.ptrs_symbol_flags) if f])
+    src = np.maximum(np.searchsorted(p_syms, syms, side="right") - 1, 0)
+    return cur[:, torch.as_tensor(src, device=cur.device)]
+
+
+def pusch_llrs(cfg: PuschConfig, re_grid: torch.Tensor, x, mag,
+               h_est=None) -> torch.Tensor:
+    """Compensated symbols of this codeword's layers, (B, L, S, M) blocks or
+    (B, L, N) RE-map values -> descrambled codeword LLRs (B, G): PTRS
+    common-phase tracking (a PTRS configuration always takes the RE map),
+    LLRs, descrambling."""
     qm, _ = cfg.qm_rate
     B = x.shape[0]
+    if cfg.ptrs:
+        phase = _ptrs_phases(cfg, re_grid, h_est)           # (B, n_symbols)
+        x = x * phase[:, None, _consts(cfg, x.device).re_pos]
     llrs = llr_mod.llrs(x.reshape(B, cfg.n_layers, -1),
-                        mag.reshape(B, cfg.n_layers, -1), qm)   # (B, L, S*M*qm)
+                        mag.reshape(B, cfg.n_layers, -1), qm)   # (B, L, N*qm)
     # symbol i went to layer i % L: interleave the per-symbol qm-bit groups
     llr_cw = llrs.reshape(B, cfg.n_layers, -1, qm).transpose(1, 2).reshape(B, -1)
+    return _descramble(cfg, llr_cw)
+
+
+def _descramble(cfg: PuschConfig, llr_cw: torch.Tensor) -> torch.Tensor:
     llr_cw = scramble_llrs(llr_cw, pusch_cinit(cfg.rnti, cfg.scrambling_q, cfg.n_id))
     if cfg.llr_quant_bits:
         llr_cw = llr_mod.quantize(llr_cw, bits=cfg.llr_quant_bits)
@@ -352,13 +569,20 @@ def _use_kernel_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> bool:
 
 def pusch_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> torch.Tensor:
     """RE grid (B, n_rx, symbols, n_sc_bwp) -> descrambled codeword LLRs
-    (B, G): channel estimation, MRC/MMSE, LLRs, descrambling."""
+    (B, G): channel estimation, MRC/MMSE/ZF or 2-layer ML detection, PTRS
+    phase tracking, LLRs, descrambling."""
     _check_ported(cfg)
+    _check_branches(cfg)
     if _use_kernel_frontend(cfg, re_grid):
         return fe.frontend(cfg, re_grid)
     h_est, nvar = pusch_channel_estimate(cfg, re_grid)
+    if cfg.receiver == "ml":
+        M, a0 = 12 * cfg.n_prb, cfg.sc0
+        y = re_grid[:, :, list(cfg.data_symbols), a0: a0 + M]
+        llr = ml_llrs_2layer(h_est, y, cfg.qm_rate[0], nvar)    # (B, 2, S, M, qm)
+        return _descramble(cfg, llr.permute(0, 2, 3, 1, 4).reshape(re_grid.shape[0], -1))
     x, mag = pusch_equalize(cfg, re_grid, h_est, nvar)
-    return pusch_llrs(cfg, x, mag)
+    return pusch_llrs(cfg, re_grid, x, mag, h_est)
 
 
 def pusch_rx_grid(cfg: PuschConfig, re_grid: torch.Tensor, rv: int = 0,

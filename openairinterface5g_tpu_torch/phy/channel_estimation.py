@@ -1,10 +1,11 @@
 """DMRS-based channel estimation: LS, smoothing, comb-2 interpolation.
 
-Port of openairinterface5g_tpu/phy/channel_estimation.py (the window mode;
-the delay-domain mode is not ported yet).
+Port of openairinterface5g_tpu/phy/channel_estimation.py: the window mode
+(a moving average) and the delay mode (truncation in the delay domain).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -51,3 +52,19 @@ def noise_variance(y_pilots, h_pilots: torch.Tensor, pilots) -> torch.Tensor:
     adjacent pilots): var = E|h[k] - h[k+1]|^2 / 2."""
     d = h_pilots[..., 1:] - h_pilots[..., :-1]
     return torch.mean(d.abs() ** 2, dim=-1) / 2.0
+
+
+def delay_domain_denoise(hp: torch.Tensor, keep_frac: float = 0.1,
+                         guard_frac: float = 0.02) -> torch.Tensor:
+    """Denoise pilot-domain LS estimates (..., P) by truncation in the delay
+    domain: IDFT, keep the taps within the CP span (the first keep_frac of
+    P) and a small negative guard for timing error (the last guard_frac),
+    zero the rest, DFT back."""
+    P = hp.shape[-1]
+    keep = max(1, int(np.ceil(keep_frac * P)))
+    guard = max(1, int(np.ceil(guard_frac * P)))
+    mask = torch.zeros(P, dtype=torch.float32, device=hp.device)
+    mask[:keep] = 1.0
+    mask[P - guard:] = 1.0
+    g = torch.fft.ifft(hp, dim=-1) * mask
+    return torch.fft.fft(g, dim=-1).to(hp.dtype)

@@ -1,8 +1,8 @@
-"""QAM modulation and layer mapping (TS 38.211 §5.1, §6.3.1.3).
+"""QAM modulation, layer mapping and precoding (TS 38.211 §5.1, §6.3.1.3-5).
 
 Port of openairinterface5g_tpu/phy/modulation.py.  Symbols come from the
 38.211 constellation formulas evaluated on bit planes; layer mapping is a
-reshape.
+reshape, precoding one matrix product.
 """
 from __future__ import annotations
 
@@ -69,3 +69,10 @@ def layer_map(symbols: torch.Tensor, n_layers: int) -> torch.Tensor:
     M = symbols.shape[-1]
     lead = symbols.shape[:-1]
     return symbols.reshape(*lead, M // n_layers, n_layers).transpose(-1, -2)
+
+
+def precode(layers: torch.Tensor, W) -> torch.Tensor:
+    """Apply the precoder W (n_ant, n_layers) to (..., n_layers, M) layer
+    symbols -> (..., n_ant, M)."""
+    W = torch.as_tensor(W, device=layers.device).to(layers.dtype)
+    return torch.einsum("al,...lm->...am", W, layers)

@@ -1,7 +1,9 @@
-"""PUSCH DMRS (TS 38.211 §6.4.1.1), configuration type 1, single symbol.
+"""Reference signals: PUSCH/PDSCH DMRS (TS 38.211 §6.4.1.1, §7.4.1.1) of
+configuration type 1, single and double symbol; low-PAPR sequences (§5.2.2);
+CSI-RS (§7.4.1.5) and PTRS (§6.4.1.2) sequences and positions.
 
-Port of the DMRS part of openairinterface5g_tpu/phy/refsig.py.  Pilots are
-host constants (cinit is configuration-static).
+Port of openairinterface5g_tpu/phy/refsig.py.  Every sequence here is a
+host constant (its cinit is configuration-static).
 """
 from __future__ import annotations
 
@@ -39,3 +41,48 @@ def dmrs_type1_port_weights(port: int) -> tuple[np.ndarray, int]:
     delta = 0 if port in (0, 1) else 1
     alt = 1 if port in (0, 2) else -1
     return np.array([1.0, alt], dtype=np.float32), delta
+
+
+def dmrs_type1_port_weights_double(port: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """(wf (2,), wt (2,), delta) for ports 0..7 of double-symbol type 1 DMRS
+    (maxLength=2, TS 38.211 Table 6.4.1.1.3-1): ports 0-3 as the single-
+    symbol table with wt = (+1, +1); ports 4-7 repeat its frequency pattern
+    with the time OCC wt = (+1, -1) across the symbol pair."""
+    wf, delta = dmrs_type1_port_weights(port % 4)
+    wt = np.array([1.0, 1.0 if port < 4 else -1.0], dtype=np.float32)
+    return wf, wt, delta
+
+
+def _largest_prime_below(n: int) -> int:
+    for c in range(n - 1, 1, -1):
+        if all(c % k for k in range(2, int(c ** 0.5) + 1)):
+            return c
+    raise ValueError(n)
+
+
+def low_papr_sequence(u: int, v: int, length: int) -> np.ndarray:
+    """Base sequence r_{u,v}(n) for M >= 36 (TS 38.211 §5.2.2.1): a Zadoff-Chu
+    sequence of the largest prime length N_ZC < M, cyclically extended;
+    x_q(m) = exp(-j pi q m (m+1) / N_ZC) with q from u and v."""
+    n_zc = _largest_prime_below(length)
+    qbar = n_zc * (u + 1) / 31.0
+    q = int(np.floor(qbar + 0.5)) + v * (-1) ** int(np.floor(2 * qbar))
+    m = np.arange(n_zc, dtype=np.float64)
+    x = np.exp(-1j * np.pi * q * m * (m + 1) / n_zc)
+    return x[np.arange(length) % n_zc].astype(np.complex64)
+
+
+def csirs_cinit(slot: int, symbol: int, n_id: int, symbols_per_slot: int = 14) -> int:
+    """TS 38.211 §7.4.1.5.2 CSI-RS scrambling init."""
+    return ((1 << 10) * (symbols_per_slot * slot + symbol + 1) * (2 * n_id + 1)
+            + n_id) % (1 << 31)
+
+
+def csirs_sequence(cinit: int, n_re: int) -> np.ndarray:
+    """Gold-seeded QPSK CSI-RS values (the DMRS sequence's mapping)."""
+    return dmrs_sequence_np(cinit, n_re)
+
+
+def ptrs_sc_indices(n_prb: int, k_ptrs: int = 2, re_offset: int = 0) -> np.ndarray:
+    """One PTRS subcarrier every K_PTRS PRBs (density-1 frequency pattern)."""
+    return (np.arange(0, n_prb, k_ptrs) * 12 + re_offset).astype(np.int32)

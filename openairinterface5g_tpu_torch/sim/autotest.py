@@ -189,7 +189,6 @@ CONFORMANCE_CASES = [
 
 # Simulators the port lacks, with the ROADMAP.md Queue 1 item that brings them
 NOT_PORTED = {
-    "dlsim": 6,
     "polartest": 7, "pbchsim": 7, "pucchsim": 7, "prachsim": 7,
     "nbiotsim": 8, "lte_softmodem_sim": 8, "lte_dlsim": 8, "lte_ulsim": 8,
 }

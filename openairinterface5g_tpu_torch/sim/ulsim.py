@@ -6,10 +6,11 @@ structure and pass criteria (ulsim.c:915 SNR loop, :1498 result prints).
 Each batch of trials at one SNR runs eagerly on the run's device, trials
 as the batch dimension, HARQ rounds as a loop with LLR-buffer combining.
 On CUDA, ``pusch_rx`` runs K3 where ``ops/pusch_frontend.supported``
-admits the configuration and the unfused chain otherwise;
-``--backend kernel`` decodes with K1, ``reference`` with the flooding
-decoder of ``coding/ldpc.py``.  Flags that need a branch the port lacks
-raise, naming its ROADMAP.md item.
+admits the configuration and the unfused chain otherwise (PTRS, data on
+the DMRS symbols, the ML receiver); ``--backend kernel`` decodes with K1,
+``reference`` with the flooding decoder of ``coding/ldpc.py``.  With a
+``csirs_cfg`` (dlsim ``--csirs``) each slot also carries a CSI-RS inside
+the allocation, which the configuration's ``rm_res`` rate-matches around.
 
 Usage:
   python -m openairinterface5g_tpu_torch.sim.ulsim -m 9 -R 106 -s 0 -S 10 -n 100
@@ -26,6 +27,8 @@ import torch
 
 from ..data.tables import pusch_dmrs_symbols
 from ..models import pusch
+from ..models.csirs import csirs_tx_grid
+from ..phy.ofdm import map_to_grid, ofdm_modulate
 from . import device_name, resolve_device
 from .channel import ChannelModel, add_noise, apply_cfo, apply_channel, doppler_phasor
 
@@ -42,7 +45,7 @@ def noise_variance(cfg, tx: torch.Tensor, snr_db: float) -> torch.Tensor:
 
 def build_step(cfg, max_rounds: int, n_iters: int, channel_name: str,
                delay_spread_ns: float = 30.0, time_shift: int = 0,
-               doppler_hz: float = 0.0, cfo_hz: float = 0.0):
+               doppler_hz: float = 0.0, cfo_hz: float = 0.0, csirs_cfg=None):
     model = ChannelModel(channel_name, cfg.n_layers, cfg.n_rx,
                          cfg.fp.sample_rate, delay_spread_ns=delay_spread_ns,
                          max_doppler_hz=doppler_hz)
@@ -53,7 +56,14 @@ def build_step(cfg, max_rounds: int, n_iters: int, channel_name: str,
         oks = []
         harq = None
         for rv in HARQ_RV_SEQ[:max_rounds]:
-            tx, _ = pusch.pusch_tx(cfg, tb, rv=rv)
+            if csirs_cfg is not None:
+                # the CSI-RS inside the allocation, on layer 0's grid
+                g, _ = pusch.pusch_tx_grid(cfg, tb, rv=rv)
+                g[:, 0, csirs_cfg.symbol] += csirs_tx_grid(csirs_cfg, tb.shape[0],
+                                                           cfg.fp.n_sc, tb.device)
+                tx = ofdm_modulate(cfg.fp, map_to_grid(cfg.fp, g), cfg.slot)
+            else:
+                tx, _ = pusch.pusch_tx(cfg, tb, rv=rv)
             sigma2 = noise_variance(cfg, tx, snr_db)
             rx, _ = apply_channel(model, gen, tx)
             if doppler_hz > 0.0:
@@ -78,11 +88,12 @@ def run_sweep(cfg, snrs, n_trials: int, batch: int, max_rounds: int = 1,
               n_iters: int = 20, channel: str = "AWGN", eff_tp_check: float = 70.0,
               seed: int = 42, verbose: bool = True, delay_spread_ns: float = 30.0,
               time_shift: int = 0, doppler_hz: float = 0.0, cfo_hz: float = 0.0,
-              device: str | torch.device = "cuda"):
+              csirs_cfg=None, device: str | torch.device = "cuda"):
     """Sweep `snrs` until the effective throughput reaches `eff_tp_check`
     (all of them when it is <= 0); returns (per-SNR results, passed)."""
     step = build_step(cfg, max_rounds, n_iters, channel, delay_spread_ns,
-                      time_shift=time_shift, doppler_hz=doppler_hz, cfo_hz=cfo_hz)
+                      time_shift=time_shift, doppler_hz=doppler_hz, cfo_hz=cfo_hz,
+                      csirs_cfg=csirs_cfg)
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     rng = np.random.default_rng(seed)
@@ -179,8 +190,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config(args: argparse.Namespace):
-    """The PuschConfig of parsed ulsim flags; raises NotImplementedError for
-    flags whose branch the port lacks (-T, -U ...,1, --receiver ml)."""
+    """The PuschConfig of parsed ulsim flags (-U's cdmGroupsNoData, -T's
+    PTRS, --receiver)."""
     # -U mappingType,addPos,configType,cdmGroupsNoData (ulsim.c:444)
     mapping, add_pos, cdm = "A", 0, 2
     if args.dmrs_add_pos is not None:
@@ -206,7 +217,6 @@ def config(args: argparse.Namespace):
                             dmrs_symbols=dmrs_syms, cdm_groups_no_data=cdm,
                             chest_window=args.chest_window,
                             receiver=args.receiver, **ptrs_kw)
-    pusch._check_ported(cfg)
     return cfg
 
 
@@ -233,7 +243,8 @@ def main(argv=None):
     print(f"PUSCH sim: {args.n_prb} PRB mu={args.mu} MCS {args.mcs} "
           f"(Qm={cfg.qm_rate[0]} R={cfg.qm_rate[1]:.3f}) {args.n_layers}x{args.n_rx} "
           f"TBS {cfg.tbs} C={p.C} Z={p.Z} G={cfg.G} channel={args.channel} "
-          f"dmrs={cfg.dmrs_symbols} cdm={cfg.cdm_groups_no_data}")
+          f"dmrs={cfg.dmrs_symbols} cdm={cfg.cdm_groups_no_data}"
+          + (f" ptrs=L{cfg.ptrs_l}K{cfg.ptrs_k}" if cfg.ptrs else ""))
     print(f"device: {device_name(dev)}, decoder {args.backend}")
     results, ok = sweep(args, cfg, dev)
     if args.json:

@@ -15,7 +15,13 @@
   ``--backend reference`` and ``kernel``.  Beside each point: the JAX
   value, the 99 % Clopper-Pearson interval of the JAX round-0 BLER,
   whether the port's round-0 BLER lies inside it, and whether it lies
-  above it (worse than the JAX package's).
+  above it (worse than the JAX package's).  Under ``ml_vs_mmse_2layer``:
+  the round-0 BLER of the linear MMSE and the joint ML receiver at one SNR
+  of ``BLER_ML_r5.json`` (24 PRB, MCS 9, 2 layers, 2x2, TDL-A 100 ns, 12
+  iterations as ``tests/test_ml_receiver.py`` runs it), 256 trials each,
+  with ``--backend reference`` (flooding, as the JAX values) and
+  ``kernel``, beside the JAX values there.  ``--only ml`` adds this pair to the
+  file already in ``--out-dir`` (or the repository's).
 
 Both files go to ``--out-dir`` (default: the current directory, the
 repository's root when run from there).  Without CUDA it raises: the
@@ -116,10 +122,35 @@ def curves(dev) -> dict:
     return out
 
 
+ML_SNR_DB = 8.0
+ML_ARGV = ["-m", "9", "-R", "24", "-W", "2", "-y", "2", "-g", "TDLA", "--delay-spread", "100",
+           "-I", "12", "-s", str(ML_SNR_DB), "-S", str(ML_SNR_DB), "-n", str(TRIALS), "-t", "0"]
+
+
+def ml_pair(dev) -> dict:
+    """Round-0 BLER of the MMSE and the ML receiver at ML_SNR_DB with each
+    decoder, the same seed (so the same TBs and channel draws), beside
+    BLER_ML_r5.json and the 99 % Clopper-Pearson interval of its values."""
+    jax_pt = next(pt for pt in json.loads((ROOT / "BLER_ML_r5.json").read_text())["curve"]
+                  if pt["snr_db"] == ML_SNR_DB)
+    out = {"argv": ML_ARGV, "jax": jax_pt}
+    for receiver, key in (("linear", "bler_mmse"), ("ml", "bler_ml")):
+        out[f"jax_{receiver}_cp99"] = clopper_pearson(round(jax_pt[key] * jax_pt["n_trials"]),
+                                                      jax_pt["n_trials"])
+        for backend in ("reference", "kernel"):
+            args = ulsim.parse_args([*ML_ARGV, "--receiver", receiver, "--backend", backend])
+            t0 = time.time()
+            res, _ = ulsim.sweep(args, ulsim.config(args), dev)
+            out[f"{receiver}_{backend}"] = res[0]
+            print(f"ml_vs_mmse_2layer {receiver} {backend}: round-0 BLER "
+                  f"{res[0]['bler_round0']:.6f} at {ML_SNR_DB} dB ({time.time() - t0:.1f} s)")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=".")
-    ap.add_argument("--only", choices=["conformance", "curves"], default=None)
+    ap.add_argument("--only", choices=["conformance", "curves", "ml"], default=None)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     out_dir = Path(args.out_dir)
@@ -140,11 +171,16 @@ def main(argv=None):
                   f"# per point: verdict (wall s), the first SNR line, the SNR of the pass\n")
         (out_dir / "CONFORMANCE_torch.txt").write_text(header + text)
         print(text)
-    if args.only in (None, "curves"):
-        data = {"card": smi, "device": device_name(dev), "generated": stamp,
-                "tool": "openairinterface5g_tpu_torch/tools/sim_records.py",
-                "trials": TRIALS, "curves": curves(dev)}
-        (out_dir / "BLER_CURVES_torch.json").write_text(json.dumps(data, indent=1) + "\n")
+    if args.only in (None, "curves", "ml"):
+        path = out_dir / "BLER_CURVES_torch.json"
+        if args.only == "ml":
+            data = json.loads((path if path.exists() else ROOT / path.name).read_text())
+        else:
+            data = {"card": smi, "device": device_name(dev), "generated": stamp,
+                    "tool": "openairinterface5g_tpu_torch/tools/sim_records.py",
+                    "trials": TRIALS, "curves": curves(dev)}
+        data["ml_vs_mmse_2layer"] = {"card": smi, "generated": stamp, **ml_pair(dev)}
+        path.write_text(json.dumps(data, indent=1) + "\n")
 
 
 if __name__ == "__main__":

@@ -46,7 +46,8 @@ from openairinterface5g_tpu_torch.convert import channel_model_from_jax, config_
 from openairinterface5g_tpu_torch.data import tables as ttables
 from openairinterface5g_tpu_torch.models import pusch as tpusch
 from openairinterface5g_tpu_torch.ops import ldpc_decoder, pusch_frontend
-from openairinterface5g_tpu_torch.sim import autotest, channel, dlschsim, ldpctest, ulschsim, ulsim
+from openairinterface5g_tpu_torch.sim import (autotest, channel, dlschsim, dlsim, ldpctest,
+                                              ulschsim, ulsim)
 
 ROOT = Path(__file__).resolve().parent.parent
 PROFILES = ["AWGN", *sorted(jch.TDL_PROFILES)]
@@ -304,17 +305,22 @@ def test_ulsim_sweep_takes_every_flag(monkeypatch):
 
 
 def test_ulsim_unported_flags_raise():
-    with pytest.raises(NotImplementedError,
-                       match="PTRS is not ported yet: ROADMAP.md Queue 1 item 3"):
-        ulsim.main(["-T", "1,2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ulsim.main(["-U", "0,1,1,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="receiver='ml' .*item 7"):
-        ulsim.main(["-W", "2", "-y", "2", "--receiver", "ml", "--device", "cpu"])
+    """The flags of PTRS (-T), data on the DMRS symbols (-U ...,1) and the ML
+    receiver give their configurations, as the JAX simulator builds them;
+    DMRS configuration type 2 stays refused."""
+    args = ulsim.parse_args(["-T", "1,2", "-U", "0,2,1,1", "-W", "2", "-y", "2"])
+    cfg = ulsim.config(args)
+    assert (cfg.ptrs, cfg.ptrs_l, cfg.ptrs_k, cfg.cdm_groups_no_data) == (True, 2, 2, 1)
+    assert cfg == config_from_jax(jpusch.PuschConfig(
+        mu=1, n_prb=106, mcs=9, n_layers=2, n_rx=2, dmrs_symbols=(2, 7, 11),
+        cdm_groups_no_data=1, ptrs=True, ptrs_l=2, ptrs_k=2))
+    assert ulsim.config(ulsim.parse_args(["-W", "2", "-y", "2", "--receiver", "ml"])).receiver == "ml"
+    with pytest.raises(ValueError, match="type 2"):
+        ulsim.config(ulsim.parse_args(["-U", "0,1,2,2"]))
 
 
 @pytest.mark.parametrize("cli", [ulsim.main, ldpctest.main, ulschsim.main, dlschsim.main,
-                                 autotest.main])
+                                 autotest.main, dlsim.main])
 def test_cli_without_cuda_raises(cli, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -356,7 +362,8 @@ def test_autotest_cases_match_jax():
     assert len(autotest.CONFORMANCE_CASES) == 33
     assert all(a[a.index("--backend") + 1] == "kernel" for _, a in autotest.CONFORMANCE_CASES)
     modules = {c[1] for c in autotest.CASES}
-    assert modules == set(autotest.NOT_PORTED) | {"ldpctest", "ulsim", "ulschsim", "dlschsim"}
+    assert modules == set(autotest.NOT_PORTED) | {"ldpctest", "ulsim", "dlsim", "ulschsim",
+                                                  "dlschsim"}
     for m in set(modules) - set(autotest.NOT_PORTED):
         assert (ROOT / "openairinterface5g_tpu_torch/sim" / f"{m}.py").exists()
 
@@ -371,9 +378,14 @@ def test_jax_autotest_imports_only_the_standard_library():
 def test_autotest_judges_cases(capsys):
     r = autotest.judge("polartest-PBCH", "polartest", [], "BLER 0.000000", device="cpu")
     assert (r.status, r.item) == ("NOT PORTED", 7)
-    r = autotest.judge("ulsim-misc8", "ulsim", ["-T", "1,2", "-U", "0,2,1,1"], "PUSCH test OK",
-                       device="cpu")
-    assert (r.status, r.item) == ("NOT PORTED", 3)
+    # misc8's branches (PTRS, 3 DMRS symbols carrying data) at 6 PRB, and
+    # dlsim's CSI-RS rate matching
+    r = autotest.judge("ulsim-misc8", "ulsim", ["-R", "6", "-T", "1,2", "-U", "0,2,1,1", "-s", "20",
+                                                "-n", "2", "-t", "99"], "PUSCH test OK", device="cpu")
+    assert r.status == "PASS" and r.last_snr_db == 20.0
+    r = autotest.judge("dlsim-csirs", "dlsim", ["-R", "6", "-s", "20", "-n", "2", "--csirs",
+                                                "-t", "99"], "PDSCH test OK", device="cpu")
+    assert r.status == "PASS" and r.last_snr_db == 20.0
     r = autotest.judge("tiny", "ulsim", ["-R", "6", "-s", "20", "-n", "2", "-t", "99"],
                        "PUSCH test OK", device="cpu")
     assert r.status == "PASS" and r.last_snr_db == 20.0
@@ -420,3 +432,18 @@ def test_sim_records_helpers(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim_records.main(["--out-dir", "unused"])
+
+
+def test_sim_records_ml_pair_config():
+    """The ML-against-MMSE pair runs the configuration of
+    tests/test_ml_receiver.py at an SNR of BLER_ML_r5.json."""
+    from openairinterface5g_tpu_torch.tools import sim_records
+    jax_curve = json.loads((ROOT / "BLER_ML_r5.json").read_text())["curve"]
+    assert sim_records.ML_SNR_DB in [pt["snr_db"] for pt in jax_curve]
+    for receiver in ("linear", "ml"):
+        args = ulsim.parse_args([*sim_records.ML_ARGV, "--receiver", receiver])
+        cfg = ulsim.config(args)
+        assert cfg == config_from_jax(jpusch.PuschConfig(
+            mu=1, n_prb=24, mcs=9, n_layers=2, n_rx=2, receiver=receiver))
+        assert (args.channel, args.delay_spread, args.n_iters, args.snr0, args.snr1,
+                args.n_trials, args.eff_tp_check) == ("TDLA", 100.0, 12, 8.0, 8.0, 256, 0.0)
