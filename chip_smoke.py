@@ -36,6 +36,13 @@ Drives the port's paths with every hand-written CUDA kernel:
     (the 273-PRB 2-layer DL slot through K3 and K1 beside the UL receiver),
     misc8's branches at the main path's width through K1 on the unfused
     chain, and the simulator cases that take them.
+  * slice 9, the NR control channels (``coding/polar.py``,
+    ``coding/small_block.py``, ``models/pdcch.py``, ``pbch.py``, ``sync.py``,
+    ``pucch.py``, ``prach.py``) and UCI on PUSCH (``models/uci_on_pusch.py``):
+    UCI on PUSCH at the main path's width through K3 and K1 (its receiver
+    cuts the UCI streams from the fused frontend's codeword-order LLRs),
+    each control channel at its real size, and the control simulators'
+    autotest cases.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -91,6 +98,24 @@ Phases, one line or more each:
      PUSCH through run_sweep with K1; every call of K3 and K1 in (a) and
      (b), and each case's first SIM_HELD_CALLS, held against the plain
      versions
+  9. slice 9: (a) UCI on PUSCH at 273 PRB, MCS 16, 2x2, B = 8 through K3
+     and K1 (decoder_check_every=1) over the bench's channel, twice: 6 ACK bits
+     (small block, rate-matched), 16 CSI-1 bits (polar, PC bits, CRC6), 40
+     CSI-2 bits (polar, CRC11); then 2 ACK bits, which puncture the data and
+     CSI-2: every TB and every UCI bit recovered with its ok flag, K3 and
+     K1 launched, every call of K3 held within K3_TOL of its plain version
+     and of K1 bit-equal to decode_plain; ms per batch and slots/s beside
+     phase 4's, and one polar SCL decode's ms (the CSI-2 stream cut from
+     pusch_frontend's LLRs, B = 8);
+     (b) the control channels at their real sizes, each decoded equal to
+     what was sent, with ms per batch: the PDCCH blind search (ALs 4, 8, 16)
+     over a 270-PRB interleaved CORESET, B = 8; SSB generate and receive
+     (Lmax 8) and initial_sync with cfo_scan=1 on a 273-PRB mu=1 stream
+     (FFT 4096), B = 8, the PBCH decoded again from the corrected stream;
+     PUCCH F0, F1, F2 (16 PRB, 64 bits, polar) and F3 (11 bits), B = 64;
+     PRACH format A2 at 273 PRB (122.88 MHz), 64 preambles, B = 32;
+     (c) SIM_CASES_9 as phase 7 runs its cases: each must pass and launch
+     neither K1 nor K3
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -101,7 +126,8 @@ host_us (the wrapper's enqueue per call, median of 5 windows); K1 layered
 f32 and K3 also carry launches_simulators, their launches in phase 7, and
 held_simulators and max_abs_err_simulators, the calls held against plain
 there and the largest error, and the same for phase 8 under launches_phase8,
-held_phase8 and max_abs_err_phase8.
+held_phase8 and max_abs_err_phase8, and for phase 9 under launches_phase9,
+held_phase9 and max_abs_err_phase9.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -110,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -117,13 +144,15 @@ import time
 import torch
 
 from openairinterface5g_tpu_torch.coding import ldpc, rate_matching
-from openairinterface5g_tpu_torch.models import pdsch, pusch
+from openairinterface5g_tpu_torch.config import make_frame_params
+from openairinterface5g_tpu_torch.models import (pbch, pdcch, pdsch, prach, pucch, pusch, sync,
+                                                 uci_on_pusch)
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
 from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
-from openairinterface5g_tpu_torch.sim import autotest, dlsim, ulsim
-from openairinterface5g_tpu_torch.sim.channel import add_noise
+from openairinterface5g_tpu_torch.sim import autotest, dlsim, prachsim, pucchsim, ulsim
+from openairinterface5g_tpu_torch.sim.channel import _complex_normal, add_noise, flat_gain
 from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
 
 SEED = 1234
@@ -166,6 +195,19 @@ SIM_CASES_8 = (("ulsim-misc7-2dmrs", ()), ("ulsim-misc8-3dmrs-ptrs", ()),
 MISC8_WIDE = dict(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2, dmrs_symbols=(2, 7, 11),
                   cdm_groups_no_data=1, ptrs=True, ptrs_l=2, ptrs_k=2,
                   decoder_backend="kernel", decoder_check_every=1)
+# slice 9: UCI on PUSCH at the main path's width (phase 9 a), rate-matched
+# ACK with both CSI parts, then an ACK that punctures
+UCI_WIDE_PUSCH = dict(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2, decoder_backend="kernel",
+                      decoder_check_every=1)
+UCI_WIDE = (dict(n_ack_bits=6, n_csi1_bits=16, n_csi2_bits=40),
+            dict(n_ack_bits=2, n_csi1_bits=16, n_csi2_bits=40))
+N_TIMED_9 = 4             # batches in a phase-9 window (host-bound: eager SCL)
+B_PUCCH, B_PRACH = 64, 32
+# the control simulators' autotest cases (phase 9 c)
+SIM_CASES_9 = tuple((cid, ()) for cid in (
+    "polartest-DCI", "polartest-UCI", "pbchsim-m7dB", "pucchsim-f0-2bit",
+    "pucchsim-f2-64bit-16prb", "pucchsim-f3-11bit", "prachsim-3-A2-273",
+    "prachsim-9-fmt0-restricted"))
 # calls of K3 and of K1 held against their plain versions in each case: the
 # first batch's two HARQ rounds (rv 0, then rv 2 combined into rv 0's
 # buffer), or two batches where a case runs one round
@@ -932,6 +974,195 @@ def phase_slice8(dev, gen, card: str, main_slots_per_s: float) -> dict:
     return {"launches": launches, "held": held}
 
 
+def _med_ms(fn, calls: int = N_TIMED_9) -> float:
+    """ms per call of fn by CUDA events, median of N_WINDOWS windows."""
+    return statistics.median(_time_ms(fn, calls) for _ in range(N_WINDOWS))
+
+
+def _bits(gen, shape) -> torch.Tensor:
+    return torch.randint(0, 2, shape, generator=gen, device=gen.device, dtype=torch.int8)
+
+
+def _uci_wide(dev, gen, held: dict, card: str, main_slots_per_s: float) -> dict:
+    """Phase 9 (a): UCI on PUSCH at 273 PRB, MCS 16, 2x2, B = 8 through K3
+    and K1, for each of UCI_WIDE; every call of both held against its plain
+    version."""
+    cfg = pusch.PuschConfig(**UCI_WIDE_PUSCH)
+    launches = {"layered_f32": 0, "pusch_frontend": 0}
+    for kw in UCI_WIDE:
+        ucfg = uci_on_pusch.UciOnPuschConfig(**kw)
+        tag = (f"UCI on PUSCH {cfg.n_prb} PRB MCS16 2x2 B={B}, ACK {kw['n_ack_bits']} "
+               f"({'punctures' if ucfg.ack_punctures else 'rate-matched'}), CSI-1 "
+               f"{kw['n_csi1_bits']}, CSI-2 {kw['n_csi2_bits']}")
+        tb = _bits(gen, (B, cfg.tbs))
+        sent = {name: _bits(gen, (B, n)) for name, n in zip(("ack", "csi1", "csi2"), kw.values())}
+        tx, _ = pusch.pusch_tx(cfg, tb, uci_cfg=ucfg, ack_bits=sent["ack"],
+                               csi1_bits=sent["csi1"], csi2_bits=sent["csi2"])
+        rx = _bench_channel(tx, gen)
+        lines = []
+        _reset_counts()
+        with _held_to_plain(tag, held, lines, limit=1 << 30):
+            out = pusch.pusch_rx(cfg, rx, n_iters=N_ITERS, uci_cfg=ucfg)
+            torch.cuda.synchronize()
+        c = _counts()
+        _check_kernels(tag, c["layered_f32"], c["pusch_frontend"], True, True)
+        _decoded(tag, out, tb)
+        for name, bits in sent.items():
+            if not (bool(out["uci"][name + "_ok"].all()) and torch.equal(out["uci"][name], bits)):
+                raise AssertionError(f"{tag}: {name} not recovered "
+                                     f"({int(out['uci'][name + '_ok'].sum())}/{B} ok)")
+        if not torch.equal(out["ack_bits"], sent["ack"]):
+            raise AssertionError(f"{tag}: ack_bits differ from the sent ACK")
+        launches = {k: launches[k] + c[k] for k in launches}
+        g = ucfg.g_sizes(cfg)
+        print(f"{tag}: {B}/{B} TBs pass CRC and equal the sent bits, ACK, CSI-1 and CSI-2 "
+              f"recovered with their ok flags (G_ack {g[0]}, G_csi1 {g[1]}, G_csi2 {g[2]}, "
+              f"G_data {g[3]}); launches {c}")
+        for line in lines:
+            print(f"  {line}")
+        ms = _med_ms(lambda: pusch.pusch_rx(cfg, rx, n_iters=N_ITERS, uci_cfg=ucfg))
+        print(f"{tag}: {B * 1000.0 / ms:.1f} slots/s ({ms:.4f} ms per {B}-slot batch, CUDA "
+              f"events, median of {N_WINDOWS} windows of {N_TIMED_9} batches; the main path in "
+              f"phase 4: {main_slots_per_s:.1f} slots/s) on {card}")
+    # one polar SCL decode (list 8) of the last run's CSI-2 stream, B = 8
+    streams = uci_on_pusch.demux_uci_llrs(cfg, ucfg, pusch.pusch_frontend(
+        cfg, extract_from_grid(cfg.fp, ofdm_demodulate(cfg.fp, rx, cfg.slot))))
+    E = streams["csi2"].shape[-1]
+    scl_ms = _med_ms(lambda: pucch.uci_decode(40, E, streams["csi2"]))
+    p = pucch._uci_code(40, E)[1]
+    print(f"polar SCL decode (list 8) of the CSI-2 stream, K {p.K} E {E} N {p.N}, B={B}: "
+          f"{scl_ms:.4f} ms per decode (CUDA events, median of {N_WINDOWS} windows of "
+          f"{N_TIMED_9}) on {card}")
+    return {"launches": launches, "scl_ms": scl_ms}
+
+
+def _pdcch_wide(dev, gen, card: str) -> None:
+    """Phase 9 (b): a DCI at AL 16 found by the blind search (ALs 4, 8, 16)
+    over a 270-PRB interleaved CORESET, 2 RX, B = 8."""
+    cs = pdcch.CoresetConfig(n_prb=270, interleaved=True, reg_bundle_size=6, interleaver_rows=3,
+                             shift=7)
+    rnti, n_id = 0x4601, 11
+    cce0 = pdcch.search_space_candidates(cs, 16, 1, rnti=rnti, css=False)[0]
+    dci = pdcch.DciConfig(A=39, aggregation_level=16, rnti=rnti, n_id=n_id, coreset=cs,
+                          cce_index=cce0)
+    pay = _bits(gen, (B, 39))
+    grid = pdcch.pdcch_tx_grid(dci, pay)
+    rx = grid[:, None] * flat_gain(gen, (B, 2, 1), False) + 0.1 * _complex_normal(
+        gen, (B, 2, grid.shape[-1]))
+    kw = dict(aggregation_levels=(4, 8, 16), candidates_per_al=(2, 2, 1), n_id=n_id, coreset=cs,
+              css=False)
+    bits, found, al = pdcch.blind_search(rx, 39, rnti, **kw)
+    if not (bool(found.all()) and bool((al == 16).all()) and torch.equal(bits, pay)):
+        raise AssertionError(f"PDCCH blind search: found {int(found.sum())}/{B}, AL {al.tolist()}")
+    ms = _med_ms(lambda: pdcch.blind_search(rx, 39, rnti, **kw), 1)
+    print(f"PDCCH blind search over a 270-PRB interleaved CORESET (45 CCEs), ALs 4, 8, 16 "
+          f"(5 candidates), 2 RX, B={B}: {B}/{B} DCIs found at AL 16 and equal to the sent; "
+          f"{ms:.4f} ms per batch on {card}")
+
+
+def _ssb_wide(dev, gen, card: str) -> None:
+    """Phase 9 (b): SSB generate/receive and initial_sync with cfo_scan=1 on
+    a 273-PRB mu=1 stream (FFT 4096), B = 8; the PBCH decoded from the
+    corrected stream."""
+    cfg = pbch.PbchConfig(n_id=321, i_ssb=0, lmax=8)
+    fp = make_frame_params(1, 273)
+    pay = _bits(gen, (B, 32))
+    tile = pbch.ssb_generate(cfg, pay)
+    rx = tile[:, None] * flat_gain(gen, (B, 2, 1, 1), False) + 0.3 * _complex_normal(
+        gen, (B, 2, 4, 240))
+    got, ok = pbch.ssb_receive(cfg, rx)
+    if not (bool(ok.all()) and torch.equal(got, pay)):
+        raise AssertionError(f"SSB receive: {int(ok.sum())}/{B} CRC ok")
+    gen_ms = _med_ms(lambda: pbch.ssb_generate(cfg, pay))
+    rx_ms = _med_ms(lambda: pbch.ssb_receive(cfg, rx))
+    # the SSB at sample 1000 of a stream at 10 dB, rotated by 0.37 SCS
+    ssb = sync.ssb_time_signal(fp, tile)
+    n, off, cfo = ssb.shape[-1] + 3000, 1000, 0.37 * fp.scs
+    sigma = float(torch.sqrt(torch.mean(ssb.abs() ** 2))) * 10 ** (-10 / 20)
+    stream = sigma * _complex_normal(gen, (B, n)) / 2 ** 0.5
+    stream[:, off: off + ssb.shape[-1]] += ssb
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fp.sample_rate
+    stream = (stream * torch.polar(torch.ones_like(t), 2 * math.pi * cfo * t)).to(torch.complex64)
+    out = sync.initial_sync(fp, stream, cfo_scan=1)
+    err = float((out["cfo_hz"] - cfo).abs().max())
+    if not (bool((out["t0"] == off).all()) and bool((out["n_id"] == 321).all())
+            and err < 0.02 * fp.scs):
+        raise AssertionError(f"initial_sync: t0 {out['t0'].tolist()}, n_id {out['n_id'].tolist()}, "
+                             f"CFO error {err:.1f} Hz")
+    sym = out["samples_corrected"][:, off: off + 4 * fp.fft_size].reshape(B, 4, fp.fft_size)
+    bins = torch.as_tensor(sync._ssb_bins(fp, 0, 0, sync.SSB_SC), device=dev)
+    rx_tile = (torch.fft.fft(sym, dim=-1) / fp.fft_size ** 0.5)[..., bins]
+    got, ok = pbch.ssb_receive(cfg, rx_tile[:, None])
+    if not (bool(ok.all()) and torch.equal(got, pay)):
+        raise AssertionError(f"PBCH from the synchronized stream: {int(ok.sum())}/{B} CRC ok")
+    sync_ms = _med_ms(lambda: sync.initial_sync(fp, stream, cfo_scan=1))
+    print(f"SSB (Lmax 8) B={B}: generate {gen_ms:.4f} ms, receive (2 RX, SCL 8) {rx_ms:.4f} ms "
+          f"per batch, {B}/{B} payloads equal; initial_sync with cfo_scan=1 on a 273-PRB mu=1 "
+          f"stream (FFT 4096, {n} samples): t0, N_ID equal, CFO error {err:.1f} Hz (SCS "
+          f"{fp.scs}), the PBCH decoded from the corrected stream; {sync_ms:.4f} ms per batch "
+          f"on {card}")
+
+
+def _pucch_prach_wide(dev, gen, card: str) -> None:
+    """Phase 9 (b): PUCCH F0, F1, F2 (16 PRB, 64 bits), F3 (11 bits, 4 PRB)
+    at B = 64 and PRACH A2 at 273 PRB (64 preambles) at B = 32, each at a
+    high SNR: no error, ms per batch of the receiver."""
+    cases = (("F0 2 bits", pucch.Pucch0Config(n_bits=2)),
+             ("F1 2 bits", pucch.Pucch1Config(n_bits=2)),
+             ("F2 64 bits 16 PRB (polar)", pucch.Pucch2Config(n_bits=64, n_prb=16)),
+             ("F3 11 bits 4 PRB", pucch.Pucch34Config(fmt=3, n_bits=11, n_prb=4)))
+    parts = []
+    for name, cfg in cases:
+        uci = pucchsim.draw_uci(cfg, B_PUCCH, gen)
+        h = flat_gain(gen, (B_PUCCH, 1, 1, 1), False)
+        noise = _complex_normal(gen, (B_PUCCH, 1, *pucchsim.tx_shape(cfg))) / 2 ** 0.5
+        errs = pucchsim.trial(cfg, uci, h, noise, 10.0)
+        if bool(errs.any()):
+            raise AssertionError(f"PUCCH {name}: {int(errs.sum())}/{B_PUCCH} errors at 10 dB")
+        tx_fn, rx_fn = pucchsim._tx_rx(cfg)
+        rx = (h * tx_fn(cfg, uci)[:, None] + 10 ** (-10 / 20) * noise).to(torch.complex64)
+        parts.append(f"{name} {_med_ms(lambda: rx_fn(cfg, rx)):.4f}")
+    print(f"PUCCH B={B_PUCCH} at 10 dB, every UCI equal to the sent; receiver ms per batch: "
+          + ", ".join(parts) + f" on {card}")
+    args = prachsim.parse_args(["-a", "-R", "273"])
+    cfg, n_pre = prachsim.config(args)
+    pre = torch.randint(0, n_pre, (B_PRACH,), generator=gen, device=dev)
+    h = flat_gain(gen, (B_PRACH, 1, 1), False)
+    noise = _complex_normal(gen, (B_PRACH, 1, cfg.n_samples))
+    misses = prachsim.trial(cfg, pre, h, noise, -10.0, args.n_rb)
+    if bool(misses.any()):
+        raise AssertionError(f"PRACH A2 273 PRB: {int(misses.sum())}/{B_PRACH} missed at -10 dB")
+    rx = (h * prach.prach_td_tx(cfg, pre)[:, None]).to(torch.complex64)
+    ms = _med_ms(lambda: prach.prach_td_rx(cfg, rx))
+    print(f"PRACH format {cfg.fmt} at 273 PRB (fs {cfg.sample_rate / 1e6:.2f} MHz, {cfg.n_samples} "
+          f"samples), {n_pre} preambles on {len(cfg.roots)} roots, B={B_PRACH}: every preamble "
+          f"detected at -10 dB; prach_td_rx {ms:.4f} ms per batch on {card}")
+
+
+def phase_slice9(dev, gen, card: str, main_slots_per_s: float) -> dict:
+    """Phase 9: UCI on PUSCH at width through K3 and K1, the control
+    channels at their real sizes, the control simulators' cases."""
+    t0 = time.perf_counter()
+    held = {}
+    uci = _uci_wide(dev, gen, held, card, main_slots_per_s)
+    _pdcch_wide(dev, gen, card)
+    _ssb_wide(dev, gen, card)
+    _pucch_prach_wide(dev, gen, card)
+    _reset_counts()
+    _sim_cases(SIM_CASES_9, held)
+    sims = _counts()
+    if any(sims.values()):
+        raise AssertionError(f"phase 9 simulators launched {sims}; they take neither K1 nor K3")
+    launches = uci["launches"]
+    if sorted(held) != sorted(launches) or any(held[k][0] != n for k, n in launches.items()):
+        raise AssertionError(f"phase 9: launches {launches}, calls held {held}")
+    print(f"phase 9: UCI on PUSCH through K3 and K1 (launches {launches}, each call held "
+          f"against plain (calls, max abs err): {held}); control channels at their real sizes; "
+          f"{len(SIM_CASES_9)} simulator cases passed without K1 or K3; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "held": held}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -954,6 +1185,7 @@ def main() -> None:
     probes = phase_probes(dev, gen)
     sims = phase_simulators()
     slice8 = phase_slice8(dev, gen, smi_line, main_path["slots_per_s"])
+    slice9 = phase_slice9(dev, gen, smi_line, main_path["slots_per_s"])
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -967,6 +1199,9 @@ def main() -> None:
                               launches_phase8=slice8["launches"][name],
                               held_phase8=slice8["held"][name][0],
                               max_abs_err_phase8=slice8["held"][name][1],
+                              launches_phase9=slice9["launches"][name],
+                              held_phase9=slice9["held"][name][0],
+                              max_abs_err_phase9=slice9["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

@@ -1,5 +1,5 @@
-"""3GPP constant tables: LDPC lifting sizes and base graphs (TS 38.212),
-PUSCH DMRS positions (TS 38.211).
+"""3GPP constant tables: LDPC lifting sizes and base graphs, the polar
+reliability sequence (TS 38.212), PUSCH DMRS positions (TS 38.211).
 
 The port's own copy of the part of openairinterface5g_tpu/data/tables.py it
 uses, so that it imports nothing of the JAX package.  ``spec_tables.npz``
@@ -7,8 +7,9 @@ beside this file is a byte copy of that package's file:
   - ``bg1``: (8, 46, 68) int16 — Table 5.3.2-2 shift values per lifting set,
     -1 marks "no edge".
   - ``bg2``: (8, 42, 52) int16 — Table 5.3.2-3.
-tests/test_torch_pusch.py holds the LDPC tables against the original,
-tests/test_torch_sim.py the DMRS positions.
+  - ``polar_q1024``: (1024,) — Table 5.3.1.2-1, ascending reliability.
+tests/test_torch_pusch.py holds the LDPC tables and the polar sequence
+against the original, tests/test_torch_sim.py the DMRS positions.
 """
 from __future__ import annotations
 
@@ -61,6 +62,17 @@ def load_base_graph(bg: int, Z: int) -> np.ndarray:
         raise ValueError("bg must be 1 or 2")
     tab = _load_npz()[f"bg{bg}"][lifting_set_index(Z)].astype(np.int32)
     return np.where(tab >= 0, tab % Z, -1).astype(np.int16)
+
+
+@functools.lru_cache(maxsize=16)
+def polar_reliability_sequence(N: int) -> np.ndarray:
+    """Reliability sequence Q_0^{N-1} (ascending reliability) for N <= 1024:
+    for N < 1024 the subsequence of Q^1024 with elements < N (TS 38.212
+    §5.3.1.2)."""
+    if N > 1024 or N & (N - 1):
+        raise ValueError("N must be a power of two <= 1024")
+    q = _load_npz()["polar_q1024"].astype(np.int32)
+    return q[q < N].astype(np.int32)
 
 
 # --- PUSCH DMRS symbol positions (TS 38.211 Table 6.4.1.1.3-3) --------------

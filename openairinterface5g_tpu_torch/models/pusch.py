@@ -15,8 +15,12 @@ slot batch is the leading dimension.  A rectangular allocation is written
 and read as symbol blocks; PTRS holes, data on the free comb of the DMRS
 symbols and rate-match patterns take the RE map (``data_re_map``), built
 once per configuration and kept on the device with the configuration's
-other constants (``_consts``).  UCI on PUSCH and ``decoder_first_iters``
-raise NotImplementedError naming their ROADMAP.md entries.
+other constants (``_consts``).  UCI on PUSCH (``uci_cfg``, models/
+uci_on_pusch.py) multiplexes HARQ-ACK and CSI into the codeword; its
+receiver cuts the streams from pusch_frontend's codeword-order LLRs (the
+fused frontend where it runs), then takes the batched LDPC decode.
+``decoder_first_iters`` raises NotImplementedError naming its ROADMAP.md
+entry.
 """
 from __future__ import annotations
 
@@ -221,19 +225,19 @@ class PuschConfig:
                 for j in range(C)]
 
 
-def _check_ported(cfg: PuschConfig, uci_cfg=None) -> None:
+def _check_ported(cfg: PuschConfig) -> None:
     """Raise for the JAX model's branches that this port does not run."""
-    if uci_cfg is not None:
-        raise NotImplementedError(
-            "UCI on PUSCH is not ported yet: ROADMAP.md Queue 1 item 7")
     if cfg.decoder_first_iters:
         raise NotImplementedError(
             "decoder_first_iters (two-phase decode) is not carried into the port: "
             "ROADMAP.md 'Not carried into the port'")
 
 
-def _check_branches(cfg: PuschConfig) -> None:
+def _check_branches(cfg: PuschConfig, uci_cfg=None) -> None:
     """The combinations the JAX model asserts against."""
+    if uci_cfg is not None and cfg.uses_re_map:
+        raise ValueError("UCI on PUSCH is not combined with the RE map (PTRS, data "
+                         "on DMRS symbols or rm_res)")
     if cfg.transform_precoding and (cfg.n_layers != 1 or cfg.uses_re_map):
         raise ValueError("transform precoding takes one layer and a rectangular "
                          "allocation (no PTRS, data on DMRS symbols or rm_res)")
@@ -330,21 +334,28 @@ def _consts(cfg: PuschConfig, device: torch.device) -> _Consts:
 # TX
 # --------------------------------------------------------------------------
 
-def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0):
+def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0, uci_cfg=None,
+                  ack_bits=None, csi1_bits=None, csi2_bits=None):
     """(B, TBS) payload bits -> ((B, L, symbols, n_sc_bwp) RE grid,
-    (B, G) scrambled codeword bits)."""
+    (B, G) scrambled codeword bits).  With uci_cfg (UciOnPuschConfig) the
+    HARQ-ACK and CSI bits are multiplexed into the codeword at distributed
+    RE positions before scrambling (TS 38.212 §6.2.7)."""
     _check_ported(cfg)
-    _check_branches(cfg)
+    _check_branches(cfg, uci_cfg)
     p, crc_name = cfg.seg_params()
     qm, _ = cfg.qm_rate
     B, dev = tb_bits.shape[0], tb_bits.device
     tb_crc = crc_attach(tb_bits.to(torch.int8), crc_name)
     cbs = segmentation.segment_tb(tb_crc, p)            # (B, C, K)
     g = ldpc.build_graph(p.bg, p.Z)
-    es = tuple(cfg.cb_e_sizes())
+    es = tuple(cfg.cb_e_sizes(None if uci_cfg is None else uci_cfg.g_sizes(cfg)[3]))
     n_cols = rate_matching.tx_cols_needed(g, rv, es, p.F, ncb=cfg.ncb())
     cw = ldpc.encode(g, cbs.reshape(B * p.C, p.K), n_cols=n_cols).reshape(B, p.C, -1)
     codeword = rate_matching.fused_rate_match_tx(g, cw, rv, es, qm, p.F, ncb=cfg.ncb())
+    if uci_cfg is not None:
+        from .uci_on_pusch import mux_uci_bits
+        codeword = mux_uci_bits(cfg, uci_cfg, codeword, ack_bits=ack_bits,
+                                csi1_bits=csi1_bits, csi2_bits=csi2_bits)
     scrambled = scramble(codeword, pusch_cinit(cfg.rnti, cfg.scrambling_q, cfg.n_id))
     syms = mod.modulate(scrambled, qm)                  # (B, G/qm)
     if cfg.transform_precoding:
@@ -371,10 +382,12 @@ def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0):
     return grid_re, scrambled
 
 
-def pusch_tx(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0):
+def pusch_tx(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0, uci_cfg=None,
+             ack_bits=None, csi1_bits=None, csi2_bits=None):
     """(B, TBS) payload bits -> ((B, n_tx_ant = n_layers, samples) complex64,
-    (B, G) scrambled codeword bits)."""
-    grid_re, scrambled = pusch_tx_grid(cfg, tb_bits, rv)
+    (B, G) scrambled codeword bits); UCI as in pusch_tx_grid."""
+    grid_re, scrambled = pusch_tx_grid(cfg, tb_bits, rv, uci_cfg, ack_bits, csi1_bits,
+                                       csi2_bits)
     fp = cfg.fp
     return ofdm_modulate(fp, map_to_grid(fp, grid_re), cfg.slot), scrambled
 
@@ -388,7 +401,9 @@ def pusch_rx(cfg: PuschConfig, rx_samples: torch.Tensor, rv: int = 0,
     """(B, n_rx, samples) -> decoded TB + status.
 
     Returns a dict with tb_bits (B, TBS), tb_ok (B,), cb_ok (B, C), llrs
-    (codeword LLRs or bit planes) and harq_buffers (B, C, cols*Z).
+    (codeword LLRs or bit planes), harq_buffers (B, C, cols*Z), and with
+    uci_cfg the decoded UCI: ack_bits (B, O_ack) and uci (per stream its
+    bits and '<stream>_ok'); both None without uci_cfg.
     """
     fp = cfg.fp
     grid = ofdm_demodulate(fp, rx_samples, cfg.slot)    # (B, R, sym, fft)
@@ -589,27 +604,39 @@ def pusch_rx_grid(cfg: PuschConfig, re_grid: torch.Tensor, rv: int = 0,
                   n_iters: int = 20, harq_buffers=None, uci_cfg=None):
     """RX from a (B, n_rx, symbols, n_sc_bwp) RE grid.  On the kernel path
     the frontend emits bit planes that rate recovery slices; the
-    codeword-order LLR vector never exists."""
-    _check_ported(cfg, uci_cfg)
-    if not cfg.llr_quant_bits and _use_kernel_frontend(cfg, re_grid):
+    codeword-order LLR vector never exists.  With uci_cfg the UCI streams
+    are cut from pusch_frontend's codeword-order LLRs."""
+    _check_ported(cfg)
+    _check_branches(cfg, uci_cfg)
+    if uci_cfg is None and not cfg.llr_quant_bits and _use_kernel_frontend(cfg, re_grid):
         planes = fe.frontend_planes(cfg, re_grid)
         return pusch_decode_codeword(cfg, None, rv=rv, n_iters=n_iters,
                                      harq_buffers=harq_buffers, planes=planes)
     return pusch_decode_codeword(cfg, pusch_frontend(cfg, re_grid), rv=rv,
-                                 n_iters=n_iters, harq_buffers=harq_buffers)
+                                 n_iters=n_iters, harq_buffers=harq_buffers, uci_cfg=uci_cfg)
 
 
 def pusch_decode_codeword(cfg: PuschConfig, llr_cw, rv: int = 0,
                           n_iters: int = 20, harq_buffers=None, uci_cfg=None,
                           planes=None):
     """Descrambled codeword LLRs (B, G), or bit planes (B, qm, G//qm) via
-    planes=, -> decoded TB dict (rate recovery + batched LDPC decode + CRC)."""
-    _check_ported(cfg, uci_cfg)
+    planes=, -> decoded TB dict (UCI demux + rate recovery + batched LDPC
+    decode + CRC)."""
+    _check_ported(cfg)
     p, crc_name = cfg.seg_params()
     qm, _ = cfg.qm_rate
     B = (planes if llr_cw is None else llr_cw).shape[0]
+    ack_bits = uci = None
+    g_data = None
+    if uci_cfg is not None:
+        from .uci_on_pusch import decode_uci, demux_uci_llrs
+        streams = demux_uci_llrs(cfg, uci_cfg, llr_cw)
+        uci = decode_uci(cfg, uci_cfg, streams)
+        ack_bits = uci.get("ack")
+        llr_cw = streams["data"]
+        g_data = uci_cfg.g_sizes(cfg)[3]
     g = ldpc.build_graph(p.bg, p.Z)
-    es = tuple(cfg.cb_e_sizes())
+    es = tuple(cfg.cb_e_sizes(g_data))
     if planes is not None:
         # The mother-code buffer is staged in bf16 for the decoder kernel
         # when Z % 128 == 0, the rule of the JAX receiver, so the two decode
@@ -633,6 +660,8 @@ def pusch_decode_codeword(cfg: PuschConfig, llr_cw, rv: int = 0,
         "cb_ok": ok_all.reshape(B, p.C),
         "llrs": llr_cw,
         "harq_buffers": stacked,
+        "ack_bits": ack_bits,
+        "uci": uci,
     }
 
 

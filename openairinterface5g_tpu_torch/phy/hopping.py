@@ -16,6 +16,11 @@ import numpy as np
 from .scrambling import gold_sequence_np
 
 
+# The JAX package's bit-serial Gold helper of this name (models/pucch.py reads
+# it); here it is the same sequence from the packed generator.
+_gold_bits_host = gold_sequence_np
+
+
 def group_sequence_uv(hopping_id: int, mode: str, slot: int, hop: int = 0,
                       m_zc: int = 12, symbols_per_slot: int = 14) -> tuple[int, int]:
     """-> (u, v) of the low-PAPR sequence of (slot, intra-slot hop).

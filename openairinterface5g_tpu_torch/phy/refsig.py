@@ -1,13 +1,18 @@
 """Reference signals: PUSCH/PDSCH DMRS (TS 38.211 §6.4.1.1, §7.4.1.1) of
 configuration type 1, single and double symbol; low-PAPR sequences (§5.2.2);
-CSI-RS (§7.4.1.5) and PTRS (§6.4.1.2) sequences and positions.
+CSI-RS (§7.4.1.5) and PTRS (§6.4.1.2) sequences and positions; PSS and SSS
+(§7.4.2.2-3).
 
 Port of openairinterface5g_tpu/phy/refsig.py.  Every sequence here is a
-host constant (its cinit is configuration-static).
+host constant (its cinit is configuration-static); ``dmrs_sequence`` keeps
+one per (cinit, length, device) on the device.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from .scrambling import gold_sequence_np
 
@@ -27,6 +32,37 @@ def dmrs_sequence_np(cinit: int, n_pilots: int) -> np.ndarray:
     re = (1.0 - 2.0 * c[0::2]) * SQRT_HALF
     im = (1.0 - 2.0 * c[1::2]) * SQRT_HALF
     return (re + 1j * im).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=256)
+def dmrs_sequence(cinit: int, n_pilots: int, device: torch.device) -> torch.Tensor:
+    """dmrs_sequence_np as a complex64 tensor on `device` (cached)."""
+    return torch.as_tensor(dmrs_sequence_np(cinit, n_pilots), device=device)
+
+
+def pss_sequence(n_id2: int) -> np.ndarray:
+    """TS 38.211 §7.4.2.2: the 127-length BPSK m-sequence, float32."""
+    x = np.zeros(127, dtype=np.int64)
+    x[:7] = [0, 1, 1, 0, 1, 1, 1]
+    for i in range(127 - 7):
+        x[i + 7] = (x[i + 4] + x[i]) % 2
+    m = (np.arange(127) + 43 * n_id2) % 127
+    return (1 - 2 * x[m]).astype(np.float32)
+
+
+def sss_sequence(n_id1: int, n_id2: int) -> np.ndarray:
+    """TS 38.211 §7.4.2.3: the 127-length SSS, float32."""
+    x0 = np.zeros(127, dtype=np.int64)
+    x1 = np.zeros(127, dtype=np.int64)
+    x0[0] = 1
+    x1[0] = 1
+    for i in range(127 - 7):
+        x0[i + 7] = (x0[i + 4] + x0[i]) % 2
+        x1[i + 7] = (x1[i + 1] + x1[i]) % 2
+    m0 = 15 * (n_id1 // 112) + 5 * n_id2
+    m1 = n_id1 % 112
+    n = np.arange(127)
+    return ((1 - 2 * x0[(n + m0) % 127]) * (1 - 2 * x1[(n + m1) % 127])).astype(np.float32)
 
 
 def dmrs_type1_sc_indices(n_prb: int, delta: int = 0) -> np.ndarray:

@@ -189,7 +189,6 @@ CONFORMANCE_CASES = [
 
 # Simulators the port lacks, with the ROADMAP.md Queue 1 item that brings them
 NOT_PORTED = {
-    "polartest": 7, "pbchsim": 7, "pucchsim": 7, "prachsim": 7,
     "nbiotsim": 8, "lte_softmodem_sim": 8, "lte_dlsim": 8, "lte_ulsim": 8,
 }
 _NOT_PORTED_RE = re.compile(r"is not ported yet: ROADMAP\.md Queue 1 item (\d+)")

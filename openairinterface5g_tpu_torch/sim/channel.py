@@ -133,6 +133,16 @@ def _complex_normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.complex(re, im)
 
 
+def flat_gain(gen: torch.Generator, shape, fading: bool) -> torch.Tensor:
+    """A flat channel per trial: Rayleigh (complex normal of unit power) with
+    `fading`, else a unit phasor of uniform phase (AWGN + phase, the
+    control-channel simulators' default), complex64 of `shape`."""
+    if fading:
+        return _complex_normal(gen, shape) / np.sqrt(2)
+    phi = torch.rand(shape, generator=gen, device=gen.device) * (2 * np.pi)
+    return torch.polar(torch.ones_like(phi), phi)
+
+
 def draw_taps(model: ChannelModel, gen: torch.Generator, lead: tuple) -> torch.Tensor:
     """One random channel realization per leading index: the dense FIR
     (*lead, n_rx, n_tx, max_delay+1) complex64 on the generator's device.

@@ -476,3 +476,148 @@ def test_tiny_kernels_in_a_cuda_graph(cuda, name, shape):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, x * 2)
+
+
+# --------------------------------------------------------------------------
+# slice 9: the control channels and UCI on PUSCH on the card (plain PyTorch
+# on CUDA tensors, K3 and K1 for UCI on PUSCH) against the same code on the CPU
+# --------------------------------------------------------------------------
+
+POLAR_CODES = [(dict(K=56, E=864, n_max=9, i_il=True), "24C"),
+               (dict(K=64, E=216, n_max=9, i_il=True), "24C"),
+               (dict(K=22, E=240, n_max=10, i_il=False, n_pc=3, i_bil=True), "6"),
+               (dict(K=51, E=200, n_max=10, i_il=False, i_bil=True), "11")]
+
+
+def _both(fn, *arrays, cuda):
+    """fn on CPU tensors and on CUDA tensors of the same numpy arrays."""
+    return (fn(*[torch.as_tensor(a) for a in arrays]),
+            fn(*[torch.as_tensor(a, device=cuda) for a in arrays]))
+
+
+def _equal(cpu, gpu):
+    assert torch.equal(cpu, gpu.cpu())
+
+
+@pytest.mark.parametrize("kw,crc", POLAR_CODES)
+def test_polar_on_the_card_matches_cpu(cuda, kw, crc):
+    """Encode equal; SCL candidates, chosen payload and CRC flags equal, the
+    metrics within 1e-4 of the largest live one (all-zero and pure-noise
+    rows included)."""
+    from openairinterface5g_tpu_torch.coding import polar
+    p = polar.polar_params(**kw)
+    rng = np.random.default_rng(p.K)
+    pay = rng.integers(0, 2, (16, p.K)).astype(np.int8)
+    enc, enc_g = _both(lambda x: polar.encode(p, x), pay, cuda=cuda)
+    _equal(enc, enc_g)
+    llr = ((1 - 2.0 * enc.numpy()) * 2 + 1.5 * rng.standard_normal(enc.shape)).astype(np.float32)
+    llr[-2] = rng.standard_normal(p.E)
+    llr[-1] = 0.0
+    (c, m), (cg, mg) = _both(lambda x: polar.scl_decode(p, polar.rate_recover_llr(p, x), 8), llr,
+                             cuda=cuda)
+    _equal(c, cg)
+    live = m < 1e8
+    assert float((m - mg.cpu()).abs().max()) <= 1e-4 * float(m[live].abs().max())
+    (s, ok), (sg, okg) = _both(lambda x: polar.decode_with_crc(p, x, crc), llr, cuda=cuda)
+    _equal(s, sg)
+    _equal(ok, okg)
+
+
+def test_control_channels_on_the_card_match_cpu(cuda):
+    """PDCCH, SSB, initial sync, PUCCH F0-F4 and PRACH: the same inputs
+    decode to the same outputs on the card as on the CPU."""
+    from openairinterface5g_tpu_torch.config import make_frame_params
+    from openairinterface5g_tpu_torch.models import pbch, pdcch, prach, pucch, sync
+    rng = np.random.default_rng(9)
+
+    def noisy(tx, n_rx=2, sigma=0.3):
+        shape = (tx.shape[0], n_rx) + tx.shape[1:]
+        n = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+        return (tx[:, None] * np.exp(0.4j) + sigma * n).astype(np.complex64)
+
+    cs = pdcch.CoresetConfig(n_prb=48, interleaved=True, reg_bundle_size=6, interleaver_rows=2)
+    dci = pdcch.DciConfig(A=39, aggregation_level=8, rnti=0x4601, coreset=cs, cce_index=0)
+    pay = rng.integers(0, 2, (4, 39)).astype(np.int8)
+    rx = noisy(pdcch.pdcch_tx_grid(dci, torch.as_tensor(pay)).numpy())
+    (b, f, a), (bg, fg, ag) = _both(lambda x: pdcch.blind_search(
+        x, 39, 0x4601, aggregation_levels=(4, 8), coreset=cs), rx, cuda=cuda)
+    for x, y in ((b, bg), (f, fg), (a, ag)):
+        _equal(x, y)
+    assert bool(f.all()) and torch.equal(b, torch.as_tensor(pay))
+
+    cfg = pbch.PbchConfig(n_id=77, i_ssb=1)
+    pay = rng.integers(0, 2, (4, 32)).astype(np.int8)
+    tile = pbch.ssb_generate(cfg, torch.as_tensor(pay))
+    (g, ok), (gg, okg) = _both(lambda x: pbch.ssb_receive(cfg, x), noisy(tile.numpy()), cuda=cuda)
+    _equal(g, gg)
+    _equal(ok, okg)
+    fp = make_frame_params(1, 24)
+    ssb = sync.ssb_time_signal(fp, tile).numpy()
+    stream = 0.1 * (rng.standard_normal((4, ssb.shape[-1] + 900))
+                    + 1j * rng.standard_normal((4, ssb.shape[-1] + 900)))
+    stream[:, 300: 300 + ssb.shape[-1]] += ssb
+    stream = (stream * np.exp(2j * np.pi * 9000.0 * np.arange(stream.shape[-1]) / fp.sample_rate)
+              ).astype(np.complex64)
+    o, og = _both(lambda x: sync.initial_sync(fp, x, cfo_scan=1), stream, cuda=cuda)
+    _equal(o["t0"], og["t0"])
+    _equal(o["n_id"], og["n_id"])
+    assert float((o["cfo_hz"] - og["cfo_hz"].cpu()).abs().max()) < 1e-3 * fp.scs
+
+    for pcfg, uci in ((pucch.Pucch0Config(n_bits=2), rng.integers(0, 4, 8)),
+                      (pucch.Pucch1Config(n_bits=2), rng.integers(0, 4, 8)),
+                      (pucch.Pucch2Config(n_bits=64, n_prb=16),
+                       rng.integers(0, 2, (8, 64)).astype(np.int8)),
+                      (pucch.Pucch34Config(fmt=3, n_bits=11, n_prb=4),
+                       rng.integers(0, 2, (8, 11)).astype(np.int8)),
+                      (pucch.Pucch34Config(fmt=4, n_bits=9, occ_len=4, occ_index=1),
+                       rng.integers(0, 2, (8, 9)).astype(np.int8))):
+        tx_fn, rx_fn = ((pucch.pucch0_tx, pucch.pucch0_rx) if isinstance(pcfg, pucch.Pucch0Config)
+                        else (pucch.pucch1_tx, pucch.pucch1_rx)
+                        if isinstance(pcfg, pucch.Pucch1Config)
+                        else (pucch.pucch2_tx, pucch.pucch2_rx)
+                        if isinstance(pcfg, pucch.Pucch2Config)
+                        else (pucch.pucch34_tx, pucch.pucch34_rx))
+        tx_c, tx_g = _both(lambda u: tx_fn(pcfg, u), uci, cuda=cuda)
+        assert float((tx_c - tx_g.cpu()).abs().max()) <= 1e-6
+        (u_c, _), (u_g, _) = _both(lambda x: rx_fn(pcfg, x), noisy(tx_c.numpy()), cuda=cuda)
+        _equal(u_c, u_g)
+        assert torch.equal(u_c, torch.as_tensor(uci).to(u_c.dtype))
+
+    td = prach.PrachTdConfig(fmt="A2", mu=1, sample_rate=122.88e6, roots=prach.nr_roots(1, 16, 139),
+                             n_cs=34)
+    pre = rng.integers(0, 64, 8)
+    tx = prach.prach_td_tx(td, torch.as_tensor(pre)).numpy()
+    d_c, d_g = _both(lambda x: prach.prach_td_rx(td, x), noisy(tx, sigma=3.0), cuda=cuda)
+    for k in ("detected", "preamble", "delay"):
+        _equal(d_c[k], d_g[k])
+    assert torch.equal(d_c["preamble"], torch.as_tensor(pre))
+    assert float((d_c["metric"] / d_g["metric"].cpu() - 1).abs().max()) < 1e-4
+
+
+def test_uci_on_pusch_through_k1_and_k3(cuda):
+    """UCI on PUSCH at 24 PRB, 2x2: K3 and K1 launch once each; TB, ACK and
+    both CSI parts equal the CPU run's (the unfused chain) and the sent bits."""
+    from openairinterface5g_tpu_torch.models.uci_on_pusch import UciOnPuschConfig
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=16, n_layers=2, n_rx=2,
+                            decoder_backend="kernel", decoder_check_every=1)
+    ucfg = UciOnPuschConfig(n_ack_bits=6, n_csi1_bits=16, n_csi2_bits=40)
+    rng = np.random.default_rng(4)
+    tb = rng.integers(0, 2, (4, cfg.tbs)).astype(np.int8)
+    bits = [rng.integers(0, 2, (4, n)).astype(np.int8) for n in (6, 16, 40)]
+    tx, _ = pusch.pusch_tx(cfg, torch.as_tensor(tb), uci_cfg=ucfg, ack_bits=torch.as_tensor(bits[0]),
+                           csi1_bits=torch.as_tensor(bits[1]), csi2_bits=torch.as_tensor(bits[2]))
+    n = rng.standard_normal((2, *tx.shape)).astype(np.float32)
+    rx = (tx + 0.1 * tx.flip(1) + 0.05 * torch.complex(torch.as_tensor(n[0]),
+                                                       torch.as_tensor(n[1]))).numpy()
+    out_c = pusch.pusch_rx(cfg, torch.as_tensor(rx), n_iters=8, uci_cfg=ucfg)
+    f0, d0 = fe.launches, ldpc_decoder.launches["layered_f32"]
+    out_g = pusch.pusch_rx(cfg, torch.as_tensor(rx, device=cuda), n_iters=8, uci_cfg=ucfg)
+    torch.cuda.synchronize()
+    assert fe.launches == f0 + 1 and ldpc_decoder.launches["layered_f32"] == d0 + 1
+    for k in ("tb_ok", "tb_bits", "ack_bits"):
+        _equal(out_c[k], out_g[k])
+    for k in out_c["uci"]:
+        _equal(out_c["uci"][k], out_g["uci"][k])
+    assert bool(out_g["tb_ok"].all()) and torch.equal(out_c["tb_bits"], torch.as_tensor(tb))
+    for name, sent in zip(("ack", "csi1", "csi2"), bits):
+        assert torch.equal(out_c["uci"][name], torch.as_tensor(sent))

@@ -149,7 +149,11 @@ def test_port_imports_no_jax():
             "for m in ('sim.channel', 'sim.ulsim', 'sim.dlsim', 'sim.ldpctest', 'sim.ulschsim',\n"
             "          'sim.dlschsim', 'sim.autotest', 'models.pdsch', 'models.csirs',\n"
             "          'phy.ml_detector', 'phy.transform_precoding', 'phy.hopping',\n"
-            "          'phy.measurements'):\n"
+            "          'phy.measurements', 'coding.polar', 'coding.small_block',\n"
+            "          'models.pdcch', 'models.pbch', 'models.sync', 'models.pucch',\n"
+            "          'models.prach', 'models.uci_on_pusch', 'data.prach_tables',\n"
+            "          'sim.polartest', 'sim.smallblocktest', 'sim.pbchsim', 'sim.pucchsim',\n"
+            "          'sim.prachsim'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -170,6 +174,38 @@ def test_copied_tables_match_jax():
             assert tt.load_base_graph(bg, Z).dtype == jt.load_base_graph(bg, Z).dtype
     with pytest.raises(ValueError):
         tt.lifting_set_index(17)
+
+
+def test_copied_control_tables_match_jax():
+    """The port's copies for the control channels: the polar reliability
+    sequence, the PRACH root maps, the bit-serial Gold generator and the
+    PSS/SSS/DMRS sequences equal the JAX package's."""
+    from openairinterface5g_tpu.data import lte_tables as jlte
+    from openairinterface5g_tpu.data import tables as jt
+    from openairinterface5g_tpu.phy import hopping as jhop
+    from openairinterface5g_tpu.phy import refsig as jrs
+    from openairinterface5g_tpu_torch.data import prach_tables as tpt
+    from openairinterface5g_tpu_torch.data import tables as tt
+    from openairinterface5g_tpu_torch.phy import hopping as thop
+    from openairinterface5g_tpu_torch.phy import refsig as trs
+    for N in (32, 64, 128, 256, 512, 1024):
+        got = tt.polar_reliability_sequence(N)
+        np.testing.assert_array_equal(got, jt.polar_reliability_sequence(N))
+        assert got.dtype == jt.polar_reliability_sequence(N).dtype
+    for bad in (2048, 100):
+        with pytest.raises(ValueError):
+            tt.polar_reliability_sequence(bad)
+    assert tpt.PRACH_ROOT_MAP_0_3 == jlte.PRACH_ROOT_MAP_0_3
+    assert tpt.PRACH_ROOT_MAP_4 == jlte.PRACH_ROOT_MAP_4
+    for cinit, n in ((0, 8), (41, 300), (0x1234 << 15, 1000), ((1 << 31) - 1, 64)):
+        np.testing.assert_array_equal(thop._gold_bits_host(cinit, n), jhop._gold_bits_host(cinit, n))
+    for n2 in range(3):
+        np.testing.assert_array_equal(trs.pss_sequence(n2), jrs.pss_sequence(n2))
+        for n1 in (0, 111, 335):
+            np.testing.assert_array_equal(trs.sss_sequence(n1, n2), jrs.sss_sequence(n1, n2))
+    for cinit, n in ((5, 144), (123456789, 36)):
+        np.testing.assert_array_equal(trs.dmrs_sequence(cinit, n, torch.device("cpu")).numpy(),
+                                      np.asarray(jrs.dmrs_sequence(cinit, n)))
 
 
 def test_copied_transport_matches_jax():
@@ -216,10 +252,13 @@ def test_unported_branches_raise(kw):
 
 
 def test_uci_and_backend_names_raise():
-    cfg = tpusch.PuschConfig(mu=1, n_prb=6, mcs=4)
+    # UCI on PUSCH is ported (tests/test_torch_uci.py); like the JAX model it
+    # is not combined with the RE map
+    from openairinterface5g_tpu_torch.models.uci_on_pusch import UciOnPuschConfig
+    cfg = tpusch.PuschConfig(mu=1, n_prb=6, mcs=4, cdm_groups_no_data=1)
     grid = torch.zeros((1, 1, 14, cfg.fp.n_sc), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpusch.pusch_rx_grid(cfg, grid, uci_cfg=object())
+    with pytest.raises(ValueError, match="RE map"):
+        tpusch.pusch_rx_grid(cfg, grid, uci_cfg=UciOnPuschConfig())
     for kw in (dict(decoder_backend="pallas"), dict(frontend_backend="xla")):
         with pytest.raises(ValueError):
             tpusch.PuschConfig(**kw)
