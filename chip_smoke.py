@@ -43,6 +43,12 @@ Drives the port's paths with every hand-written CUDA kernel:
     cuts the UCI streams from the fused frontend's codeword-order LLRs),
     each control channel at its real size, and the control simulators'
     autotest cases.
+  * slice 10, the slot models (``models/srs.py``, ``prs.py``,
+    ``mu_mimo.py``, ``gnb.py``, ``ue.py``) and the LTE data plane
+    (``coding/turbo.py``, ``lte/``, ``sim/lte_dlsim.py``, ``lte_ulsim.py``):
+    the gNB and UE slots at 273 PRB through K3 and K1, MU-MIMO through K1,
+    SRS and PRS at full width, the LTE autotest cases, a 20 MHz LTE PDSCH
+    and one turbo decode.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -116,6 +122,21 @@ Phases, one line or more each:
      PRACH format A2 at 273 PRB (122.88 MHz), 64 preambles, B = 32;
      (c) SIM_CASES_9 as phase 7 runs its cases: each must pass and launch
      neither K1 nor K3
+ 10. slice 10, B = 8, CUDA-event ms per batch of each step: (a) the gNB
+     slot at 273 PRB: gnb_dl_slot with a 2-layer PDSCH on PRB 20-272, the
+     SSB on PRB 0-19, the grant DCI in a 270-PRB CORESET and a 2-port
+     CSI-RS, over the bench's channel into a 2-RX pdsch_rx (K3, K1); the
+     MIB and the CSI-RS measured; gnb_ul_slot with the main path's PUSCH
+     on symbols 0-12 (K3, K1), PUCCH F0 and F2 on symbol 13 and a PRACH
+     occasion: every TB, UCI bit and preamble recovered; (b) ue_receive_slot
+     on that slot with a 1-layer PDSCH: the DCI found at AL 8, the grant
+     read, 8/8 TBs through K3 and not K1; (c) MU-MIMO at 273 PRB with K1
+     pinned (both UEs 8/8, K3 not launched), srs_report with 2 ports over
+     272 PRB (the PMI within 2 % of the channel's best gain), prs_toa at
+     273 PRB, FFT 4096, osf 8 (within 0.5 samples of the delay); (d) the
+     LTE autotest cases in this process, a 100-PRB MCS-28 LTE PDSCH batch
+     (8/8 TBs) and one turbo decode at K = 6144, neither launching K1 nor
+     K3; every K3 and K1 call of (a)-(c) held against its plain version
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -126,8 +147,9 @@ host_us (the wrapper's enqueue per call, median of 5 windows); K1 layered
 f32 and K3 also carry launches_simulators, their launches in phase 7, and
 held_simulators and max_abs_err_simulators, the calls held against plain
 there and the largest error, and the same for phase 8 under launches_phase8,
-held_phase8 and max_abs_err_phase8, and for phase 9 under launches_phase9,
-held_phase9 and max_abs_err_phase9.
+held_phase8 and max_abs_err_phase8, for phase 9 under launches_phase9,
+held_phase9 and max_abs_err_phase9, and for phase 10 under
+launches_phase10, held_phase10 and max_abs_err_phase10.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -135,6 +157,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -143,13 +166,15 @@ import time
 
 import torch
 
-from openairinterface5g_tpu_torch.coding import ldpc, rate_matching
+from openairinterface5g_tpu_torch.coding import ldpc, rate_matching, turbo
 from openairinterface5g_tpu_torch.config import make_frame_params
-from openairinterface5g_tpu_torch.models import (pbch, pdcch, pdsch, prach, pucch, pusch, sync,
-                                                 uci_on_pusch)
+from openairinterface5g_tpu_torch.lte import pdsch as lte_pdsch
+from openairinterface5g_tpu_torch.models import (csirs, gnb, mu_mimo, pbch, pdcch, pdsch, prach,
+                                                 prs, pucch, pusch, srs, sync, uci_on_pusch, ue)
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
+from openairinterface5g_tpu_torch.phy import ofdm
 from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
 from openairinterface5g_tpu_torch.sim import autotest, dlsim, prachsim, pucchsim, ulsim
 from openairinterface5g_tpu_torch.sim.channel import _complex_normal, add_noise, flat_gain
@@ -1163,6 +1188,289 @@ def phase_slice9(dev, gen, card: str, main_slots_per_s: float) -> dict:
     return {"launches": launches, "held": held}
 
 
+# slice 10: the gNB and UE slots at the main path's width (phase 10 a, b)
+SLOT_PRB = 273
+SLOT_RNTI = 0x4601
+SLOT_PDSCH = dict(mu=1, n_prb=253, prb_start=20, n_bwp_prb=SLOT_PRB, mcs=16, rnti=SLOT_RNTI,
+                  start_symbol=2, n_symbols=12, dmrs_symbols=(2,))   # PRB 0-19: the SSB
+SLOT_PUSCH = dict(UCI_WIDE_PUSCH, n_symbols=13)                     # symbol 13: PUCCH
+SLOT_CORESET_PRB = 270
+SLOT_PUCCH_PRB = (100, 200)     # PUCCH F0, and the first of F2's 4 PRB
+SRS_PRB = 272
+N_TIMED_10 = 2            # calls in a phase-10 window (host-bound slots)
+LTE_CASES = (("lte-dlsim-mcs10", ()), ("lte-ulsim-mcs16-2rx", ()))
+LTE_WIDE = dict(n_rb=100, n_prb=100, mcs=28, n_rx=2)               # 20 MHz, C = 13
+
+
+def _once_ms(fn) -> float:
+    """ms of single calls of fn by CUDA events, median of N_WINDOWS (for the
+    calls that take seconds; the correctness run before warmed them up)."""
+    times = []
+    for _ in range(N_WINDOWS):
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def _two_rx(tx: torch.Tensor, gen) -> torch.Tensor:
+    """(B, 1, samples) -> (B, 2, samples): a second antenna at 0.6 + 0.3j,
+    then the bench's channel."""
+    w = torch.tensor([1.0, 0.6 + 0.3j], dtype=torch.complex64, device=tx.device)
+    return _bench_channel(tx * w[:, None], gen)
+
+
+def _grant_dci(dev) -> torch.Tensor:
+    """(B, DCI_A) bits of the grant of SLOT_PDSCH's allocation, MCS 16."""
+    bits = ue.encode_grant(mcs=SLOT_PDSCH["mcs"], prb_start=SLOT_PDSCH["prb_start"],
+                           n_prb=SLOT_PDSCH["n_prb"])
+    return torch.as_tensor(bits, device=dev).expand(B, -1).contiguous()
+
+
+def _dl_slot_cfg(n_layers: int, dci_al: int):
+    """Phase 10's DL slot: a PDSCH of n_layers on PRB 20-272, the SSB on
+    PRB 0-19 at symbols 8-11, the grant DCI (AL dci_al) in a 270-PRB CORESET
+    at symbol 0, a CSI-RS over the BWP at symbol 1 (n_layers ports)."""
+    pd = pdsch.PdschConfig(n_layers=n_layers, n_rx=2, decoder_backend="kernel",
+                           decoder_check_every=1, **SLOT_PDSCH)
+    dl = gnb.SlotDlConfig(
+        mu=1, n_bwp_prb=SLOT_PRB, pdsch=(pd,),
+        ssb=gnb.SsbPdu(pbch.PbchConfig(n_id=321, i_ssb=0, lmax=8), prb_offset=0, start_symbol=8),
+        pdcch=(gnb.PdcchPdu(pdcch.DciConfig(A=ue.DCI_A, aggregation_level=dci_al, rnti=SLOT_RNTI,
+                                            coreset_prb=SLOT_CORESET_PRB)),),
+        csirs=(gnb.CsirsPdu(csirs.CsirsConfig(n_prb=SLOT_PRB, symbol=1, n_ports=n_layers)),))
+    return pd, dl
+
+
+def _slot_gnb(dev, gen, held: dict, card: str) -> dict:
+    """Phase 10 (a): the gNB slot at 273 PRB, B = 8: the DL slot composed and
+    sent (2-layer PDSCH, SSB, PDCCH, 2-port CSI-RS) and received by a 2-RX UE
+    (PDSCH through K3 and K1, the MIB, the CSI-RS); the UL slot received by
+    gnb_ul_slot (the main path's PUSCH on symbols 0-12 through K3 and K1,
+    PUCCH F0 and F2 on symbol 13, a PRACH occasion)."""
+    fp = make_frame_params(1, SLOT_PRB)
+    pd, dl = _dl_slot_cfg(2, 8)
+    tb = _bits(gen, (B, pd.tbs))
+    mib = _bits(gen, (B, 32))
+    dci = _grant_dci(dev)
+    tx, _ = gnb.gnb_dl_slot(dl, [tb], mib, dci_payloads=[dci])
+    rx = _bench_channel(tx, gen)
+    pu = pusch.PuschConfig(**SLOT_PUSCH)
+    p0 = pucch.Pucch0Config(n_bits=2)
+    p2 = pucch.Pucch2Config(n_bits=16, n_prb=4)
+    prb0, prb2 = SLOT_PUCCH_PRB
+    ul = gnb.SlotUlConfig(mu=1, n_bwp_prb=SLOT_PRB, pusch=(pu,), pucch0=((p0, prb0),),
+                          pucch2=((p2, prb2),), prach=(prach.PrachConfig(),))
+    tbu, csi = _bits(gen, (B, pu.tbs)), _bits(gen, (B, 16))
+    ack = torch.randint(0, 4, (B,), generator=gen, device=dev)
+    pre = torch.randint(0, 64, (B,), generator=gen, device=dev)
+
+    def ul_tx():
+        g, _ = pusch.pusch_tx_grid(pu, tbu)
+        g = gnb.place_pucch_tile(g, pucch.pucch0_tx(p0, ack), p0, prb0)
+        g[:, 0, 13, 12 * prb2: 12 * (prb2 + 4)] += pucch.pucch2_tx(p2, csi)[:, 0]
+        return ofdm.ofdm_modulate(fp, ofdm.map_to_grid(fp, g), 0)
+
+    rx_ul = _bench_channel(ul_tx(), gen)
+    occ = prach.prach_tx(ul.prach[0], pre)[:, None]
+    pf = occ * torch.tensor([1.0, 0.5 - 0.5j], dtype=torch.complex64, device=dev)[:, None] \
+        + 0.1 * _complex_normal(gen, (B, 2, occ.shape[-1]))
+    lines = []
+    _reset_counts()
+    with _held_to_plain("phase 10 gNB slot", held, lines, limit=1 << 30):
+        out_dl = pdsch.pdsch_rx(pd, rx, n_iters=N_ITERS)
+        out_ul = gnb.gnb_ul_slot(ul, rx_ul, n_iters=N_ITERS, prach_freq=pf)
+        torch.cuda.synchronize()
+    c = _counts()
+    if c["pusch_frontend"] != 2 or c["layered_f32"] < 2:
+        raise AssertionError(f"gNB slot at {SLOT_PRB} PRB: launches {c}, want K3 twice "
+                             f"(DL, UL) and K1")
+    _decoded("phase 10 DL PDSCH", out_dl, tb)
+    _decoded("phase 10 UL PUSCH", {"tb_ok": out_ul["crc_indication"][0]["tb_ok"],
+                                   "tb_bits": out_ul["rx_data"][0]}, tbu)
+    grid = extract_from_grid(fp, ofdm_demodulate(fp, rx, 0))
+    got_mib, mib_ok = pbch.ssb_receive(dl.ssb.cfg, grid[:, :, 8:12, :240])
+    meas = csirs.csi_measure_2port(dl.csirs[0].cfg, grid[:, :, 1])
+    u0, u2 = out_ul["uci0"][0]["uci"], out_ul["uci2"][0]
+    ra = out_ul["rach_indication"][0]
+    checks = {"MIB": bool(mib_ok.all()) and torch.equal(got_mib, mib),
+              "CSI-RS": bool((meas["snr_db"] > 10).all()),
+              "PUCCH F0": torch.equal(u0.long(), ack),
+              "PUCCH F2": bool(u2["ok"].all()) and torch.equal(u2["uci"], csi),
+              "PRACH": bool(ra["detected"].all()) and torch.equal(ra["preamble"].to(pre.dtype), pre)}
+    if not all(checks.values()):
+        raise AssertionError(f"gNB slot at {SLOT_PRB} PRB: recovered {checks}")
+    print(f"gNB slot {SLOT_PRB} PRB B={B}: DL 2-layer PDSCH {pd.n_prb} PRB MCS16 {B}/{B} TBs, "
+          f"MIB, CSI-RS (PMI {meas['pmi'].tolist()}, SNR >= {float(meas['snr_db'].min()):.1f} "
+          f"dB); UL PUSCH {pu.n_prb} PRB 2x2 {B}/{B} TBs, PUCCH F0 2 bits, F2 16 bits, PRACH "
+          f"{B}/{B} preambles recovered; launches {c}")
+    for line in lines:
+        print(f"  {line}")
+    dl_tx_ms = _med_ms(lambda: gnb.gnb_dl_slot(dl, [tb], mib, dci_payloads=[dci]), N_TIMED_10)
+    dl_rx_ms = _med_ms(lambda: pdsch.pdsch_rx(pd, rx, n_iters=N_ITERS), N_TIMED_10)
+    ul_ms = _med_ms(lambda: gnb.gnb_ul_slot(ul, rx_ul, n_iters=N_ITERS, prach_freq=pf), N_TIMED_10)
+    print(f"gNB slot {SLOT_PRB} PRB B={B}, ms per batch (CUDA events, median of {N_WINDOWS} "
+          f"windows of {N_TIMED_10}): gnb_dl_slot {dl_tx_ms:.4f}, the UE's pdsch_rx "
+          f"{dl_rx_ms:.4f}, gnb_ul_slot {ul_ms:.4f} on {card}")
+    return {"launches": c, "ms": {"gnb_dl_slot": dl_tx_ms, "pdsch_rx": dl_rx_ms,
+                                  "gnb_ul_slot": ul_ms}}
+
+
+def _slot_ue(dev, gen, held: dict, card: str) -> dict:
+    """Phase 10 (b): ue_receive_slot on the DL slot with a 1-layer PDSCH on
+    PRB 20-272 (the UE model receives one layer): the blind search over
+    the 270-PRB CORESET, the grant, the PDSCH through K3, not K1."""
+    fp = make_frame_params(1, SLOT_PRB)
+    pd, dl = _dl_slot_cfg(1, 8)
+    tb = _bits(gen, (B, pd.tbs))
+    dci = _grant_dci(dev)
+    tx, _ = gnb.gnb_dl_slot(dl, [tb], _bits(gen, (B, 32)), dci_payloads=[dci])
+    grid = extract_from_grid(fp, ofdm_demodulate(fp, _two_rx(tx, gen), 0))
+    cfg = ue.UeConfig(mu=1, n_bwp_prb=SLOT_PRB, rnti=SLOT_RNTI, coreset_prb=SLOT_CORESET_PRB,
+                      n_rx=2)
+    lines = []
+    _reset_counts()
+    with _held_to_plain("phase 10 UE slot", held, lines, limit=1 << 30):
+        out = ue.ue_receive_slot(cfg, grid, n_iters=N_ITERS)
+        torch.cuda.synchronize()
+    c = _counts()
+    _check_kernels("phase 10 UE slot", c["layered_f32"], c["pusch_frontend"], False, True)
+    if not (bool(out["dci_found"].all()) and bool((out["al"] == 8).all())
+            and out["grant"] == ue.decode_grant(_grant_dci(dev)[0].cpu().numpy())):
+        raise AssertionError(f"UE slot: DCI found {out['dci_found'].tolist()}, "
+                             f"grant {out['grant']}")
+    _decoded("phase 10 UE slot", out, tb)
+    print(f"UE slot {SLOT_PRB} PRB B={B}: DCI found at AL 8 in the {SLOT_CORESET_PRB}-PRB CORESET, grant "
+          f"{out['grant']}, {B}/{B} TBs recovered; launches {c}")
+    for line in lines:
+        print(f"  {line}")
+    ms = _once_ms(lambda: ue.ue_receive_slot(cfg, grid, n_iters=N_ITERS))
+    print(f"ue_receive_slot {SLOT_PRB} PRB B={B}: {ms:.4f} ms per batch (CUDA events, median "
+          f"of {N_WINDOWS} single calls) on {card}")
+    return {"launches": c, "ms": ms}
+
+
+def _mu_srs_prs(dev, gen, held: dict, card: str) -> dict:
+    """Phase 10 (c): MU-MIMO at 273 PRB through K1 (not K3), SRS with 2 ports
+    over 272 PRB, PRS ToA at 273 PRB (FFT 4096, osf 8)."""
+    cfgs = [dataclasses.replace(c, decoder_backend="kernel")
+            for c in mu_mimo.mu_cfgs(SLOT_PRB, 0x1001, 0x1002, n_rx=2)]
+    pmi = mu_mimo._ORTHO_PAIRS[0]
+    tbs = [_bits(gen, (B, c.tbs)) for c in cfgs]
+    tx = mu_mimo.mu_mimo_tx(*cfgs, *tbs, *pmi)
+    rxs = [_bench_channel(tx, gen) for _ in cfgs]
+    lines = []
+    _reset_counts()
+    with _held_to_plain("phase 10 MU-MIMO", held, lines, limit=1 << 30):
+        outs = [mu_mimo.mu_mimo_rx(c, port, rx, n_iters=N_ITERS)
+                for port, (c, rx) in enumerate(zip(cfgs, rxs))]
+        torch.cuda.synchronize()
+    c = _counts()
+    _check_kernels("phase 10 MU-MIMO", c["layered_f32"], c["pusch_frontend"], True, False)
+    for i, (out, tb) in enumerate(zip(outs, tbs)):
+        _decoded(f"phase 10 MU-MIMO UE {i + 1}", out, tb)
+    tx_ms = _med_ms(lambda: mu_mimo.mu_mimo_tx(*cfgs, *tbs, *pmi), N_TIMED_10)
+    rx_ms = _med_ms(lambda: mu_mimo.mu_mimo_rx(cfgs[0], 0, rxs[0], n_iters=N_ITERS), N_TIMED_10)
+    print(f"MU-MIMO {SLOT_PRB} PRB MCS {cfgs[0].mcs}, PMI pair {pmi}, B={B}: both UEs {B}/{B} "
+          f"TBs through K1 (launches {c}); mu_mimo_tx {tx_ms:.4f} ms, mu_mimo_rx {rx_ms:.4f} ms "
+          f"per batch")
+    for line in lines:
+        print(f"  {line}")
+    # SRS: 2 ports over SRS_PRB through a flat 2x2 channel per slot
+    scfg = srs.SrsConfig(n_prb=SRS_PRB, comb=2, u=3, n_ports=2)
+    H = _complex_normal(gen, (B, 2, 2)) / 2 ** 0.5
+    H[:, :, 0] *= 2.0                       # the first port stronger: a clear PMI
+    sig = torch.einsum("brp,bpk->brk", H, srs.srs_tx(scfg, B, dev))
+    srx = sig + 0.05 * _complex_normal(gen, sig.shape)
+    rep = srs.srs_report(scfg, srx)
+    W = torch.as_tensor(csirs.PMI_CODEBOOK_2TX, dtype=torch.complex64, device=dev)
+    gains = torch.einsum("brp,ip->bir", H, W).abs().pow(2).sum(-1)      # (B, 4), the channel's
+    picked = gains.gather(1, rep["pmi"].long()[:, None])[:, 0]
+    if not (bool((picked >= 0.98 * gains.amax(-1)).all())
+            and bool(torch.isfinite(rep["subband_snr_db"]).all())
+            and bool((rep["wideband_snr_db"] > 10).all())):
+        raise AssertionError(f"SRS: PMI {rep['pmi'].tolist()} (the channel's best "
+                             f"{gains.argmax(-1).tolist()}), SNR {rep['wideband_snr_db'].tolist()}")
+    srs_ms = _med_ms(lambda: srs.srs_report(scfg, srx))
+    # PRS: fractional delays at the 4096-point grid's rate, 2 RX
+    pcfg = prs.PrsConfig(n_prb=SLOT_PRB, comb_size=4, n_symbols=4, n_id_prs=42)
+    n_sc, fft = 12 * SLOT_PRB, make_frame_params(1, SLOT_PRB).fft_size
+    delay = torch.linspace(-20.0, 30.0, B, device=dev)
+    k = torch.arange(n_sc, device=dev)
+    ph = torch.polar(torch.ones((B, n_sc), device=dev), -2 * math.pi * k * delay[:, None] / fft)
+    prx = (prs.prs_tx_grid(pcfg, B, n_sc, dev)[:, None] * ph[:, None, None]
+           * flat_gain(gen, (B, 2, 1, 1), False) + 0.1 * _complex_normal(gen, (B, 2, 4, n_sc)))
+    toa = prs.prs_toa(pcfg, prx, fft)["toa_samples"]
+    err = float((toa - delay).abs().max())
+    if not err < 0.5:
+        raise AssertionError(f"PRS ToA: error {err:.3f} samples, toa {toa.tolist()}")
+    prs_ms = _med_ms(lambda: prs.prs_toa(pcfg, prx, fft))
+    print(f"SRS 2 ports {SRS_PRB} PRB comb 2, 2 RX, B={B}: PMI within 2% of the channel's best gain, "
+          f"wideband SNR "
+          f">= {float(rep['wideband_snr_db'].min()):.1f} dB, srs_report {srs_ms:.4f} ms; PRS "
+          f"{SLOT_PRB} PRB comb 4, FFT {fft} x osf 8, B={B}: ToA within {err:.4f} samples of "
+          f"the delay, prs_toa {prs_ms:.4f} ms per batch on {card}")
+    return {"launches": c, "ms": {"mu_mimo_tx": tx_ms, "mu_mimo_rx": rx_ms, "srs_report": srs_ms,
+                                  "prs_toa": prs_ms}}
+
+
+def _lte(dev, gen, held: dict, card: str) -> dict:
+    """Phase 10 (d): the LTE autotest cases in this process, one LTE PDSCH
+    batch at 100 PRB, MCS 28 (B = 8), and one turbo decode at K = 6144
+    (B = 8); none reaches K1 or K3."""
+    _reset_counts()
+    _sim_cases(LTE_CASES, held)
+    cfg = lte_pdsch.LtePdschConfig(**LTE_WIDE)
+    p = cfg.seg()
+    tb = _bits(gen, (B, cfg.tbs))
+    tx, _ = lte_pdsch.pdsch_tx(cfg, tb)
+    rx = _two_rx(tx, gen)
+    out = lte_pdsch.pdsch_rx(cfg, rx)
+    _decoded("phase 10 LTE PDSCH", out, tb)
+    tx_ms = _med_ms(lambda: lte_pdsch.pdsch_tx(cfg, tb), 1)
+    rx_ms = _once_ms(lambda: lte_pdsch.pdsch_rx(cfg, rx))
+    K = 6144
+    d = turbo.encode(_bits(gen, (B, K)))
+    llrs = [4.0 * (1.0 - 2.0 * x.float()) + 2.0 * torch.randn(x.shape, generator=gen, device=dev)
+            for x in d]
+    turbo.decode(*llrs)
+    dec_ms = _once_ms(lambda: turbo.decode(*llrs))
+    c = _counts()
+    if any(c.values()):
+        raise AssertionError(f"phase 10 LTE launched {c}; it takes neither K1 nor K3")
+    print(f"LTE PDSCH {cfg.n_rb} PRB MCS {cfg.mcs} (TBS {cfg.tbs}, C={p.C}, K {p.k_minus}/"
+          f"{p.k_plus}) 2 RX B={B}: {B}/{B} TBs; pdsch_tx {tx_ms:.4f} ms, pdsch_rx (6 turbo "
+          f"iterations) {rx_ms:.4f} ms per batch; turbo decode K={K} B={B}, 6 iterations: "
+          f"{dec_ms:.4f} ms (eager, {24 * (K + 3)} trellis steps; CUDA events, median of "
+          f"{N_WINDOWS} single calls; pdsch_tx {N_WINDOWS} windows of 1) on {card}")
+    return {"ms": {"lte_pdsch_tx": tx_ms, "lte_pdsch_rx": rx_ms, "turbo_decode": dec_ms}}
+
+
+def phase_slice10(dev, gen, card: str) -> dict:
+    """Phase 10: the gNB and UE slots at 273 PRB through K3 and K1, MU-MIMO,
+    SRS and PRS at full width, and the LTE data plane."""
+    t0 = time.perf_counter()
+    held = {}
+    a = _slot_gnb(dev, gen, held, card)
+    b = _slot_ue(dev, gen, held, card)
+    c = _mu_srs_prs(dev, gen, held, card)
+    d = _lte(dev, gen, held, card)
+    launches = {k: a["launches"][k] + b["launches"][k] + c["launches"][k]
+                for k in ("layered_f32", "pusch_frontend")}
+    if sorted(held) != sorted(launches) or any(held[k][0] != n for k, n in launches.items()):
+        raise AssertionError(f"phase 10: launches {launches}, calls held {held}")
+    print(f"phase 10: gNB slot, UE slot, MU-MIMO through K3 and K1 (launches {launches}, each "
+          f"call held against plain (calls, max abs err): {held}); SRS, PRS; LTE "
+          f"{len(LTE_CASES)} autotest cases and the 100-PRB PDSCH without K1 or K3; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "held": held,
+            "ms": {**a["ms"], "ue_receive_slot": b["ms"], **c["ms"], **d["ms"]}}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -1186,6 +1494,7 @@ def main() -> None:
     sims = phase_simulators()
     slice8 = phase_slice8(dev, gen, smi_line, main_path["slots_per_s"])
     slice9 = phase_slice9(dev, gen, smi_line, main_path["slots_per_s"])
+    slice10 = phase_slice10(dev, gen, smi_line)
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -1202,6 +1511,9 @@ def main() -> None:
                               launches_phase9=slice9["launches"][name],
                               held_phase9=slice9["held"][name][0],
                               max_abs_err_phase9=slice9["held"][name][1],
+                              launches_phase10=slice10["launches"][name],
+                              held_phase10=slice10["held"][name][0],
+                              max_abs_err_phase10=slice10["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

@@ -122,3 +122,54 @@ def csirs_sequence(cinit: int, n_re: int) -> np.ndarray:
 def ptrs_sc_indices(n_prb: int, k_ptrs: int = 2, re_offset: int = 0) -> np.ndarray:
     """One PTRS subcarrier every K_PTRS PRBs (density-1 frequency pattern)."""
     return (np.arange(0, n_prb, k_ptrs) * 12 + re_offset).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# SRS (TS 38.211 §6.4.1.4)
+# --------------------------------------------------------------------------
+
+def srs_sequence(n_prb: int, comb: int = 2, u: int = 0, v: int = 0,
+                 cyclic_shift: int = 0, n_cs_max: int = 8) -> np.ndarray:
+    """(m_sc,) SRS sequence, m_sc = 12 n_prb / comb: the low-PAPR base with
+    the cyclic shift alpha = 2 pi cyclic_shift / n_cs_max."""
+    m_sc = n_prb * 12 // comb
+    base = low_papr_sequence(u, v, m_sc)
+    alpha = 2 * np.pi * cyclic_shift / n_cs_max
+    return (np.exp(1j * alpha * np.arange(m_sc)) * base).astype(np.complex64)
+
+
+def srs_sc_indices(n_prb: int, comb: int = 2, comb_offset: int = 0) -> np.ndarray:
+    """Subcarrier indices of the SRS comb within the sounded PRBs."""
+    return (np.arange(n_prb * 12 // comb) * comb + comb_offset).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# PRS (TS 38.211 §7.4.1.7)
+# --------------------------------------------------------------------------
+
+def prs_cinit(slot: int, symbol: int, n_id_prs: int, symbols_per_slot: int = 14) -> int:
+    """TS 38.211 §7.4.1.7.1 sequence init."""
+    return (((1 << 22) * (n_id_prs // 1024)
+             + (1 << 10) * (symbols_per_slot * slot + symbol + 1) * (2 * (n_id_prs % 1024) + 1)
+             + (n_id_prs % 1024)) % (1 << 31))
+
+
+def prs_sequence(cinit: int, n_re: int) -> np.ndarray:
+    """Gold-seeded QPSK PRS values (the DMRS sequence's mapping)."""
+    return dmrs_sequence_np(cinit, n_re)
+
+
+_PRS_STAIRCASE = {
+    2: [0, 1],
+    4: [0, 2, 1, 3],
+    6: [0, 3, 1, 4, 2, 5],
+    12: [0, 6, 3, 9, 1, 7, 4, 10, 2, 8, 5, 11],
+}
+
+
+def prs_staircase_offsets(comb_size: int, n_symbols: int, re_offset: int = 0) -> np.ndarray:
+    """Per-symbol subcarrier offset of the PRS comb (the staircase of TS 38.211
+    Table 7.4.1.7.3-1), comb sizes 2, 4, 6 and 12."""
+    pat = _PRS_STAIRCASE[comb_size]
+    return np.array([(re_offset + pat[sym % len(pat)]) % comb_size
+                     for sym in range(n_symbols)], dtype=np.int32)

@@ -20,6 +20,8 @@ from openairinterface5g_tpu_torch.coding import rate_matching as trm
 from openairinterface5g_tpu_torch.coding import segmentation as tseg
 from openairinterface5g_tpu_torch.coding.backend import decoder
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 
 def _t(a):
     return torch.as_tensor(np.asarray(a))

@@ -10,10 +10,14 @@ Tolerances:
   equal, on batches that hold a pure-noise row;
 * sync: t0 and n_id equal, cfo_hz within 1e-3 of the SCS, the PSS and SSS
   metrics within 1e-4 relative.
-The JAX functions run eagerly, as the JAX package's own tests run them; the
-PDCCH and PBCH codes share N = 512 and the batch size, so their SCL
-operations compile once.
+The JAX receivers with an SCL decode run eagerly, as the JAX package's own
+tests run them: the PDCCH and PBCH codes share N = 512 and the batch size,
+so their SCL operations compile once for pdcch_rx, blind_search and
+ssb_receive.  The other JAX functions (the encoders, TX grids and
+initial_sync) are each compiled as one program by XLA at its CPU
+optimization level 0, which takes a fraction of their op-by-op compiles.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +32,16 @@ from openairinterface5g_tpu_torch.models import pbch as tpbch
 from openairinterface5g_tpu_torch.models import pdcch as tpdcch
 from openairinterface5g_tpu_torch.models import sync as tsync
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 B = 4
+
+
+def _jx(fn, *arrays):
+    """fn on the numpy arrays as JAX arrays, compiled by XLA at its CPU
+    backend's optimization level 0."""
+    args = [jnp.asarray(a) for a in arrays]
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
 CORESET = dict(n_prb=48, interleaved=True, reg_bundle_size=6, interleaver_rows=2, shift=5)
 
 
@@ -78,9 +91,9 @@ def test_dci_encode_and_grid_match_jax():
     for al, cce in ((4, 4), (8, 0)):
         jc, tc = _dci(jpdcch, al, cce), _dci(tpdcch, al, cce)
         np.testing.assert_array_equal(tpdcch.dci_encode(tc, torch.as_tensor(pay)).numpy(),
-                                      np.asarray(jpdcch.dci_encode(jc, jnp.asarray(pay))))
+                                      np.asarray(_jx(lambda x: jpdcch.dci_encode(jc, x), pay)))
         np.testing.assert_allclose(tpdcch.pdcch_tx_grid(tc, torch.as_tensor(pay), slot=3).numpy(),
-                                   np.asarray(jpdcch.pdcch_tx_grid(jc, jnp.asarray(pay), slot=3)),
+                                   np.asarray(_jx(lambda x: jpdcch.pdcch_tx_grid(jc, x, slot=3), pay)),
                                    rtol=0, atol=1e-6)
 
 
@@ -156,9 +169,9 @@ def test_pbch_encode_and_ssb_match_jax(cls):
     pay = rng.integers(0, 2, (B, 32)).astype(np.int8)
     jc, tc = jpbch.PbchConfig(**cls), tpbch.PbchConfig(**cls)
     np.testing.assert_array_equal(tpbch.pbch_encode(tc, torch.as_tensor(pay)).numpy(),
-                                  np.asarray(jpbch.pbch_encode(jc, jnp.asarray(pay))))
+                                  np.asarray(_jx(lambda x: jpbch.pbch_encode(jc, x), pay)))
     np.testing.assert_allclose(tpbch.ssb_generate(tc, torch.as_tensor(pay)).numpy(),
-                               np.asarray(jpbch.ssb_generate(jc, jnp.asarray(pay))),
+                               np.asarray(_jx(lambda x: jpbch.ssb_generate(jc, x), pay)),
                                rtol=0, atol=1e-6)
 
 
@@ -198,7 +211,7 @@ def test_ssb_time_signal_matches_jax():
     tile = tpbch.ssb_generate(tpbch.PbchConfig(n_id=321), torch.as_tensor(pay))
     for k in (0, 12):
         got = tsync.ssb_time_signal(fp, tile, k_offset=k).numpy()
-        want = np.asarray(jsync.ssb_time_signal(jframe(1, 24), jnp.asarray(tile.numpy()), k))
+        want = np.asarray(_jx(lambda x: jsync.ssb_time_signal(jframe(1, 24), x, k), tile.numpy()))
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
@@ -207,7 +220,7 @@ def test_initial_sync_matches_jax(cfo_scan, cfo_hz):
     tfp, jfp = tframe(1, 24), jframe(1, 24)
     s = _stream(6, 321, 400, 10.0, cfo_hz, tfp)
     got = tsync.initial_sync(tfp, torch.as_tensor(s), cfo_scan=cfo_scan)
-    want = jsync.initial_sync(jfp, jnp.asarray(s), cfo_scan=cfo_scan)
+    want = _jx(lambda x: jsync.initial_sync(jfp, x, cfo_scan=cfo_scan), s)
     for k in ("t0", "n_id"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     np.testing.assert_array_equal(got["n_id"].numpy(), 321)

@@ -5,6 +5,8 @@ elsewhere.  Imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -621,3 +623,138 @@ def test_uci_on_pusch_through_k1_and_k3(cuda):
     assert bool(out_g["tb_ok"].all()) and torch.equal(out_c["tb_bits"], torch.as_tensor(tb))
     for name, sent in zip(("ack", "csi1", "csi2"), bits):
         assert torch.equal(out_c["uci"][name], torch.as_tensor(sent))
+
+
+def test_turbo_on_the_card_matches_cpu(cuda):
+    """The turbo encoder bit-equal on the card; the decoder's bits equal and
+    its LLRs within 1e-3 of the CPU run's (K = 40 and 1024, 0.5 dB)."""
+    from openairinterface5g_tpu_torch.coding import turbo
+    rng = np.random.default_rng(12)
+    for K in (40, 1024):
+        bits = rng.integers(0, 2, (6, K)).astype(np.int8)
+        d_c, d_g = _both(turbo.encode, bits, cuda=cuda)
+        for a, b in zip(d_c, d_g):
+            _equal(a, b)
+        sigma = 10 ** (-0.5 / 20)
+        llrs = [(2 / sigma ** 2 * ((1 - 2 * x.numpy().astype(np.float32))
+                                   + sigma * rng.standard_normal(x.shape))).astype(np.float32)
+                for x in d_c]
+        (b_c, l_c), (b_g, l_g) = _both(turbo.decode, *llrs, cuda=cuda)
+        _equal(b_c, b_g)
+        assert float((l_c - l_g.cpu()).abs().max()) <= 1e-3 * float(l_c.abs().max())
+
+
+def test_lte_chains_on_the_card_match_cpu(cuda):
+    """LTE PDSCH (two code blocks with filler) and PUSCH (2 RX): TX samples
+    within 1e-5 of the CPU's, RX tb_ok and TB bits equal and equal to the
+    sent ones, LLRs within 1e-4."""
+    from openairinterface5g_tpu_torch.lte import pdsch as lte_pdsch
+    from openairinterface5g_tpu_torch.lte import pusch as lte_pusch
+    rng = np.random.default_rng(13)
+    for cfg, tx_fn, rx_fn in (
+            (lte_pdsch.LtePdschConfig(n_rb=25, n_prb=25, mcs=28, tbs_override=6208, n_rx=2),
+             lte_pdsch.pdsch_tx, lte_pdsch.pdsch_rx),
+            (lte_pusch.LtePuschConfig(n_rb=6, n_prb=6, mcs=16, n_rx=2),
+             lte_pusch.pusch_tx, lte_pusch.pusch_rx)):
+        tb = rng.integers(0, 2, (3, cfg.tbs)).astype(np.int8)
+        (tx_c, s_c), (tx_g, s_g) = _both(lambda t: tx_fn(cfg, t), tb, cuda=cuda)
+        _equal(s_c, s_g)
+        assert float((tx_c - tx_g.cpu()).abs().max()) <= 1e-5 * float(tx_c.abs().max())
+        x = tx_c.numpy()
+        rx = (np.concatenate([x, (0.6 + 0.3j) * x], axis=1)
+              + 0.03 * (rng.standard_normal((3, 2, x.shape[-1]))
+                        + 1j * rng.standard_normal((3, 2, x.shape[-1])))).astype(np.complex64)
+        o_c, o_g = _both(lambda r: rx_fn(cfg, r), rx, cuda=cuda)
+        for k in ("tb_ok", "cb_ok", "tb_bits"):
+            _equal(o_c[k], o_g[k])
+        assert torch.equal(o_c["tb_bits"], torch.as_tensor(tb))
+        assert float((o_c["llrs"] - o_g["llrs"].cpu()).abs().max()) \
+            <= 1e-4 * float(o_c["llrs"].abs().max())
+
+
+def test_slot_models_on_the_card_match_cpu(cuda):
+    """SRS, PRS and MU-MIMO (K1 pinned), and the gNB DL/UL and UE slots at 24
+    PRB: the card's outputs equal the CPU's (the CPU runs the plain versions
+    of K3 and K1), K1 and K3 launching where their configurations take them."""
+    from openairinterface5g_tpu_torch.config import make_frame_params
+    from openairinterface5g_tpu_torch.models import (csirs, gnb, mu_mimo, pbch, pdcch, pdsch,
+                                                     prach, prs, pucch, srs, ue)
+    from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
+    rng = np.random.default_rng(14)
+
+    def cplx(shape, s=1.0):
+        return (s * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))).astype(
+            np.complex64)
+
+    scfg = srs.SrsConfig(n_prb=24, n_ports=2)
+    sig = np.einsum("brp,bpk->brk", cplx((4, 2, 2)), srs.srs_tx(scfg, 4, "cpu").numpy())
+    r_c, r_g = _both(lambda x: srs.srs_report(scfg, x), (sig + cplx(sig.shape, 0.05)), cuda=cuda)
+    _equal(r_c["pmi"], r_g["pmi"])
+    assert float((r_c["wideband_snr_db"] - r_g["wideband_snr_db"].cpu()).abs().max()) < 1e-3
+    pcfg = prs.PrsConfig(n_prb=24)
+    tile = prs.prs_tx_grid(pcfg, 4, 288, "cpu").numpy()[:, None]
+    t_c, t_g = _both(lambda x: prs.prs_toa(pcfg, x, 512)["toa_samples"],
+                     (tile * np.exp(-2j * np.pi * np.arange(288) * 3.3 / 512)
+                      + cplx((4, 2, 4, 288), 0.1)).astype(np.complex64), cuda=cuda)
+    assert float((t_c - t_g.cpu()).abs().max()) < 1e-3
+
+    c1, c2 = (dataclasses.replace(c, decoder_backend="kernel") for c in mu_mimo.mu_cfgs(24, 1, 2))
+    tbs = [rng.integers(0, 2, (4, c.tbs)).astype(np.int8) for c in (c1, c2)]
+    tx = mu_mimo.mu_mimo_tx(c1, c2, *(torch.as_tensor(t) for t in tbs), 0, 1).numpy()
+    rx = (tx + 0.1 * tx[:, ::-1] + cplx(tx.shape, 0.02)).astype(np.complex64)
+    f0, d0 = fe.launches, ldpc_decoder.launches["layered_f32"]
+    o_c, o_g = _both(lambda x: mu_mimo.mu_mimo_rx(c1, 0, x, n_iters=8), rx, cuda=cuda)
+    torch.cuda.synchronize()
+    assert fe.launches == f0 and ldpc_decoder.launches["layered_f32"] == d0 + 1
+    _equal(o_c["tb_bits"], o_g["tb_bits"])
+    assert torch.equal(o_c["tb_bits"], torch.as_tensor(tbs[0]))
+
+    pd = pdsch.PdschConfig(mu=1, n_prb=4, prb_start=20, n_bwp_prb=24, mcs=9, rnti=0x4321,
+                           start_symbol=2, n_symbols=12, dmrs_symbols=(2,))
+    dl = gnb.SlotDlConfig(mu=1, n_bwp_prb=24, pdsch=(pd,),
+                          ssb=gnb.SsbPdu(pbch.PbchConfig(n_id=0), start_symbol=8),
+                          pdcch=(gnb.PdcchPdu(pdcch.DciConfig(A=ue.DCI_A, rnti=0x4321,
+                                                              coreset_prb=6,
+                                                              aggregation_level=1)),),
+                          csirs=(gnb.CsirsPdu(csirs.CsirsConfig(n_prb=24, symbol=1)),))
+    tb = rng.integers(0, 2, (2, pd.tbs)).astype(np.int8)
+    mib = rng.integers(0, 2, (2, 32)).astype(np.int8)
+    dci = np.tile(ue.encode_grant(mcs=9, prb_start=20, n_prb=4), (2, 1))
+    (tx_c, _), (tx_g, _) = _both(lambda a, b, c: gnb.gnb_dl_slot(dl, [a], b, dci_payloads=[c]),
+                                 tb, mib, dci, cuda=cuda)
+    assert float((tx_c - tx_g.cpu()).abs().max()) <= 1e-5 * float(tx_c.abs().max())
+    fp = make_frame_params(1, 24)
+    grid = extract_from_grid(fp, ofdm_demodulate(fp, tx_c, 0)).numpy()
+    ucfg = ue.UeConfig(mu=1, n_bwp_prb=24, rnti=0x4321, coreset_prb=6)
+    f0 = fe.launches
+    u_c, u_g = _both(lambda g: ue.ue_receive_slot(ucfg, g), grid + cplx(grid.shape, 0.03),
+                     cuda=cuda)
+    torch.cuda.synchronize()
+    assert fe.launches == f0 + 1 and u_c["grant"] == u_g["grant"]
+    for k in ("dci_found", "tb_ok", "tb_bits"):
+        _equal(u_c[k], u_g[k])
+    assert torch.equal(u_c["tb_bits"], torch.as_tensor(tb))
+
+    pu = pusch.PuschConfig(mu=1, n_prb=16, n_bwp_prb=24, mcs=9, n_symbols=13, n_rx=2,
+                           decoder_backend="kernel")
+    p0, p2 = pucch.Pucch0Config(n_bits=1), pucch.Pucch2Config(n_bits=6, n_prb=2)
+    ul = gnb.SlotUlConfig(mu=1, n_bwp_prb=24, pusch=(pu,), pucch0=((p0, 18),),
+                          pucch2=((p2, 20),), prach=(prach.PrachConfig(),))
+    tbu = torch.as_tensor(rng.integers(0, 2, (2, pu.tbs)).astype(np.int8))
+    g, _ = pusch.pusch_tx_grid(pu, tbu)
+    g = gnb.place_pucch_tile(g, pucch.pucch0_tx(p0, torch.tensor([0, 1])), p0, 18)
+    g[:, 0, 13, 240: 264] += pucch.pucch2_tx(p2, torch.ones((2, 6), dtype=torch.int8))[:, 0]
+    from openairinterface5g_tpu_torch.phy.ofdm import map_to_grid, ofdm_modulate
+    x = ofdm_modulate(fp, map_to_grid(fp, g), 0).numpy()
+    x = np.concatenate([x, 0.5j * x], axis=1) + cplx((2, 2, x.shape[-1]), 0.01)
+    pf = prach.prach_tx(prach.PrachConfig(), torch.tensor([5, 17])).numpy()[:, None]
+    f0, d0 = fe.launches, ldpc_decoder.launches["layered_f32"]
+    o_c, o_g = _both(lambda a, b: gnb.gnb_ul_slot(ul, a, n_iters=8, prach_freq=b),
+                     x.astype(np.complex64), pf.astype(np.complex64), cuda=cuda)
+    torch.cuda.synchronize()
+    assert fe.launches == f0 + 1 and ldpc_decoder.launches["layered_f32"] == d0 + 1
+    _equal(o_c["rx_data"][0], o_g["rx_data"][0])
+    assert torch.equal(o_c["rx_data"][0], tbu)
+    _equal(o_c["uci0"][0]["uci"], o_g["uci0"][0]["uci"])
+    _equal(o_c["uci2"][0]["uci"], o_g["uci2"][0]["uci"])
+    _equal(o_c["rach_indication"][0]["preamble"], o_g["rach_indication"][0]["preamble"])

@@ -20,6 +20,8 @@ from openairinterface5g_tpu_torch.convert import config_from_jax
 from openairinterface5g_tpu_torch.models import pusch as tpusch
 from openairinterface5g_tpu_torch.ops import pusch_frontend as tfe
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 TOL = 2e-4
 
 # the six configurations of tests/test_pusch_frontend_pallas.py

@@ -30,6 +30,8 @@ from openairinterface5g_tpu_torch.phy import llr as llr_mod
 from openairinterface5g_tpu_torch.phy import refsig
 from test_torch_cuda import FRONTEND_CFGS, _rx_grid
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 TOL = 2e-4
 
 

@@ -24,6 +24,8 @@ from openairinterface5g_tpu_torch.models import pusch
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 _KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
 _MAIN_PATH = dict(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2)   # chip_smoke.py's
 

@@ -1,5 +1,6 @@
 """K1's plain version (ops/ldpc_decoder.decode_plain) against the JAX Pallas
-decoder, run in interpret mode on the CPU as tests/test_ldpc_pallas.py does.
+decoder, run in interpret mode on the CPU as tests/test_ldpc_pallas.py does
+(compiled by XLA at its CPU optimization level 0).
 
 * check_every=0: the hard bits are identical.  The plain version keeps the
   f32 operation order of ldpc_pallas.py:262-275, so no tolerance is needed.
@@ -19,6 +20,14 @@ from openairinterface5g_tpu.ops.ldpc_pallas import decode_pallas
 from openairinterface5g_tpu_torch.coding import ldpc as tldpc
 from openairinterface5g_tpu_torch.coding.backend import decoder
 from openairinterface5g_tpu_torch.ops import ldpc_decoder
+
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
+
+def _compiled(fn, *args):
+    """fn compiled by XLA at its CPU backend's optimization level 0, called
+    on args."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
 
 
 def _awgn(g, n_cb, seed, snr_db):
@@ -53,7 +62,7 @@ def test_plain_matches_pallas_bits(bg, Z, n_cb, dtype):
     # comparison covers messages far from a codeword
     g, _, xj, xt = _inputs(bg, Z, n_cb, dtype, snr_db=0.0)
     with pltpu.force_tpu_interpret_mode():
-        want_bits, want_ok = jax.jit(lambda x: decode_pallas(g, x, n_iters=3))(xj)
+        want_bits, want_ok = _compiled(lambda x: decode_pallas(g, x, n_iters=3), xj)
     got_bits, got_ok = ldpc_decoder.decode_plain(tldpc.build_graph(bg, Z), xt, n_iters=3)
     np.testing.assert_array_equal(got_bits.numpy(), np.asarray(want_bits))
     np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
@@ -65,8 +74,8 @@ def test_plain_matches_pallas_bits(bg, Z, n_cb, dtype):
 def test_early_stop_decodes_sent_bits(bg, Z, n_cb, dtype):
     g, info, xj, xt = _inputs(bg, Z, n_cb, dtype, snr_db=3.0)
     with pltpu.force_tpu_interpret_mode():
-        want_bits, want_ok = jax.jit(
-            lambda x: decode_pallas(g, x, n_iters=8, check_every=1))(xj)
+        want_bits, want_ok = _compiled(
+            lambda x: decode_pallas(g, x, n_iters=8, check_every=1), xj)
     assert bool(np.asarray(want_ok).all())
     np.testing.assert_array_equal(np.asarray(want_bits), info)
     # through the registry entry the receiver uses

@@ -3,11 +3,12 @@
 The port's plain versions (ops/ldpc_decoder.decode_plain and
 decode_bf16_plain, which the CUDA kernels equal on the card) against
 decode_pallas with msg_dtype=bfloat16, run in interpret mode on the CPU.
-Same numpy inputs, same cases as tests/test_torch_ldpc_variants.py: at
-0 dB after 3 iterations on a rate-1/2 cut, hard bits and ok flags are
-identical (every bf16 operation rounds in the same place: computed in f32,
-rounded to bf16, in XLA and in PyTorch alike); at 3 dB after 8 iterations
-both give the sent bits.
+Same numpy inputs, same cases as tests/test_torch_ldpc_variants.py (one
+interpret-mode program per variant runs both): at 0 dB after 8 iterations
+on a rate-1/2 cut, hard bits and ok flags are identical (every bf16
+operation rounds in the same place: computed in f32, rounded to bf16, in
+XLA and in PyTorch alike); at 3 dB after 8 iterations both give the sent
+bits.
 """
 import numpy as np
 import pytest
@@ -17,13 +18,15 @@ from openairinterface5g_tpu_torch.coding import ldpc as tldpc
 from openairinterface5g_tpu_torch.ops import ldpc_decoder
 from test_torch_ldpc_variants import BG, Z, awgn, check_against_pallas
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 VARIANTS = [("flooding", torch.bfloat16), ("layered", torch.bfloat16)]
 
 
 @pytest.mark.parametrize("schedule,msg_dtype", VARIANTS)
 def test_bits_equal_pallas_at_0db(schedule, msg_dtype):
     ok = check_against_pallas(schedule, msg_dtype, "0dB")
-    assert not ok.all()
+    assert not ok.any()
 
 
 @pytest.mark.parametrize("schedule,msg_dtype", VARIANTS)

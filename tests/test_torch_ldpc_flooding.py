@@ -27,6 +27,8 @@ from openairinterface5g_tpu_torch.ops import ldpc_decoder
 from test_torch_cuda import _awgn_llr
 from test_torch_ldpc_layered import ALPHA, _CASES, _bits, _compress, _expand, _scale
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 # (n_iters, check_every): no early stop, and a check after every first and
 # third iteration
 RUNS = [(1, 0), (5, 0), (5, 1), (6, 3)]

@@ -24,6 +24,8 @@ from openairinterface5g_tpu_torch.coding import ldpc
 from openairinterface5g_tpu_torch.ops import ldpc_decoder
 from test_torch_cuda import _awgn_llr
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 ALPHA = 0.8125
 
 

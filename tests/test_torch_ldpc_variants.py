@@ -5,14 +5,16 @@ runs for CPU tensors and which the CUDA kernel equals on the card) against
 decode_pallas run in interpret mode on the CPU, as tests/test_ldpc_pallas.py
 runs it.  Same numpy inputs into both; BG2, Z=64, 4 code blocks:
 
-* 0 dB, 3 iterations, the codeword cut to its first 22 of 52 columns (rate
-  1/2 after the punctured head), so the decode is stopped far from a
-  codeword: hard bits and ok flags are identical, no tolerance.
+* 0 dB, 8 iterations, the codeword cut to its first 22 of 52 columns (rate
+  1/2 after the punctured head), so the decode ends far from a codeword
+  (no block converges): hard bits and ok flags are identical, no tolerance.
 * 3 dB, 8 iterations, the whole codeword: both give the sent bits, every
   ok flag true.
 
-The int8 variant's quantized input is compared first.  Each JAX result is
-computed once per module (one interpret-mode compile per variant and case).
+The int8 variant's quantized input is compared first.  Both cases have the
+same shape and iteration count, so each variant's interpret-mode program
+is compiled once per module (by XLA at its CPU optimization level 0) and
+runs both; each JAX result is computed once per module.
 """
 import functools
 
@@ -30,8 +32,10 @@ from openairinterface5g_tpu_torch.coding import ldpc as tldpc
 from openairinterface5g_tpu_torch.coding.backend import decoder
 from openairinterface5g_tpu_torch.ops import ldpc_decoder
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 BG, Z, N_CB = 2, 64, 4
-CASES = {"0dB": (0.0, 3, 22), "3dB": (3.0, 8, None)}   # snr, iterations, columns sent
+CASES = {"0dB": (0.0, 8, 22), "3dB": (3.0, 8, None)}   # snr, iterations, columns sent
 _JAX_MSG = {torch.float32: jnp.float32, torch.int8: jnp.int8, torch.bfloat16: jnp.bfloat16}
 
 
@@ -53,15 +57,21 @@ def awgn(case: str, seed: int = 7):
 
 
 @functools.lru_cache(maxsize=None)
+def _pallas_decoder(schedule: str, msg_dtype: torch.dtype, n_iters: int):
+    """decode_pallas of one variant, jitted once: the cases share it."""
+    g = build_graph(BG, Z)
+    fn = jax.jit(lambda x: decode_pallas(g, x, n_iters=n_iters, schedule=schedule,
+                                         msg_dtype=_JAX_MSG[msg_dtype]))
+    x = jax.ShapeDtypeStruct((N_CB, g.cols * Z), jnp.float32)
+    return fn.lower(x).compile({"xla_backend_optimization_level": 0})
+
+
+@functools.lru_cache(maxsize=None)
 def pallas_result(schedule: str, msg_dtype: torch.dtype, case: str):
     """decode_pallas in interpret mode: (bits, ok) as numpy."""
     _, llr = awgn(case)
-    n_iters = CASES[case][1]
-    g = build_graph(BG, Z)
     with pltpu.force_tpu_interpret_mode():
-        bits, ok = jax.jit(lambda x: decode_pallas(
-            g, x, n_iters=n_iters, schedule=schedule, msg_dtype=_JAX_MSG[msg_dtype]))(
-                jnp.asarray(llr))
+        bits, ok = _pallas_decoder(schedule, msg_dtype, CASES[case][1])(jnp.asarray(llr))
     return np.asarray(bits), np.asarray(ok)
 
 
@@ -85,7 +95,7 @@ VARIANTS = [("flooding", torch.float32), ("layered", torch.int8), ("flooding", t
 @pytest.mark.parametrize("schedule,msg_dtype", VARIANTS)
 def test_bits_equal_pallas_at_0db(schedule, msg_dtype):
     ok = check_against_pallas(schedule, msg_dtype, "0dB")
-    assert not ok.all()          # the comparison covers blocks far from a codeword
+    assert not ok.any()          # the comparison covers blocks far from a codeword
 
 
 @pytest.mark.parametrize("schedule,msg_dtype", VARIANTS)

@@ -32,6 +32,8 @@ from openairinterface5g_tpu_torch.models import pusch as tpusch
 from openairinterface5g_tpu_torch.ops import ldpc_decoder, pusch_frontend
 from openairinterface5g_tpu_torch.sim import dlsim, ulsim
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 TX_TOL = 1e-5       # time-domain samples: of max |tx|
 EST_TOL = 1e-5      # channel estimates, measurements: of max |.|
 LLR_TOL = 1e-4      # LLRs: of max |LLR|

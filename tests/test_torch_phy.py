@@ -25,6 +25,8 @@ from openairinterface5g_tpu_torch.phy import ofdm as tofdm
 from openairinterface5g_tpu_torch.phy import refsig as tref
 from openairinterface5g_tpu_torch.phy import scrambling as tscr
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 RTOL = 1e-5
 
 

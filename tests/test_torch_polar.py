@@ -15,7 +15,8 @@ Tolerances:
 Four polar configurations, each one XLA program (at optimization level 0)
 shared by its tests: PBCH (K 56, E 864, repetition), a DCI (K 64, E 216,
 puncturing), a UCI with PC bits and CRC6 (K 22, E 240) and a UCI with
-CRC11 (K 51, E 200).
+CRC11 (K 51, E 200).  The JAX encoders and rate recovery are compiled the
+same way.
 """
 import functools
 
@@ -29,6 +30,8 @@ from openairinterface5g_tpu.coding import polar as jpolar
 from openairinterface5g_tpu.coding import small_block as jsb
 from openairinterface5g_tpu_torch.coding import polar as tpolar
 from openairinterface5g_tpu_torch.coding import small_block as tsb
+
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
 
 # (id, polar_params kwargs, CRC)
 CODES = {
@@ -99,8 +102,9 @@ def test_encode_matches_jax(kw):
     pay = np.random.default_rng(p.K).integers(0, 2, (7, p.K)).astype(np.int8)
     got = tpolar.encode(p, torch.as_tensor(pay))
     assert got.dtype == torch.int8
+    jp = jpolar.polar_params(**kw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(
-        jpolar.encode(jpolar.polar_params(**kw), jnp.asarray(pay))))
+        _compiled(lambda x: jpolar.encode(jp, x), jnp.asarray(pay))))
 
 
 @pytest.mark.parametrize("kw", [c[0] for c in CODES.values()] + MORE_PARAMS)
@@ -109,7 +113,8 @@ def test_rate_recover_matches_jax(kw):
     llr = np.random.default_rng(p.E).standard_normal((3, p.E)).astype(np.float32)
     np.testing.assert_array_equal(
         tpolar.rate_recover_llr(p, torch.as_tensor(llr)).numpy(),
-        np.asarray(jpolar.rate_recover_llr(jpolar.polar_params(**kw), jnp.asarray(llr))))
+        np.asarray(_compiled(lambda x: jpolar.rate_recover_llr(jpolar.polar_params(**kw), x),
+                             jnp.asarray(llr))))
 
 
 @pytest.mark.parametrize("name", list(CODES))

@@ -11,7 +11,10 @@ Tolerances:
   relative; the small-block confidence within 1e-5 (the port folds the
   repetitions by a reshape and sum, the JAX package by a scatter-add);
 * PRACH detected, preamble and delay equal, the metric within 1e-4 relative.
+Each JAX function is compiled as one program by XLA at its CPU optimization
+level 0 (eagerly it compiles op by op, several times as long).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +25,16 @@ from openairinterface5g_tpu.models import pucch as jpucch
 from openairinterface5g_tpu_torch.models import prach as tprach
 from openairinterface5g_tpu_torch.models import pucch as tpucch
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 B = 4
+
+
+def _jx(fn, *arrays):
+    """fn on the numpy arrays as JAX arrays, compiled by XLA at its CPU
+    backend's optimization level 0."""
+    args = [jnp.asarray(a) for a in arrays]
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
 
 
 def _rx(rng, tx, n_rx=2, sigma=0.5, fading=True):
@@ -62,10 +74,10 @@ def test_pucch0_matches_jax(kw, n_bits):
     rng = np.random.default_rng(n_bits)
     uci = rng.integers(0, 1 << n_bits, B)
     tx = tpucch.pucch0_tx(tc, torch.as_tensor(uci))
-    _same(tx, jpucch.pucch0_tx(jc, jnp.asarray(uci)), 1e-6)
+    _same(tx, _jx(lambda u: jpucch.pucch0_tx(jc, u), uci), 1e-6)
     rx = _rx(rng, tx.numpy(), sigma=0.7)
     got, energy = tpucch.pucch0_rx(tc, torch.as_tensor(rx))
-    want, wenergy = jpucch.pucch0_rx(jc, jnp.asarray(rx))
+    want, wenergy = _jx(lambda r: jpucch.pucch0_rx(jc, r), rx)
     _same(got, want)
     np.testing.assert_allclose(energy.numpy(), np.asarray(wenergy), rtol=1e-4)
 
@@ -79,10 +91,10 @@ def test_pucch1_matches_jax(kw, n_bits):
     rng = np.random.default_rng(10 + n_bits)
     uci = rng.integers(0, 1 << n_bits, B)
     tx = tpucch.pucch1_tx(tc, torch.as_tensor(uci))
-    _same(tx, jpucch.pucch1_tx(jc, jnp.asarray(uci)), 1e-6)
+    _same(tx, _jx(lambda u: jpucch.pucch1_tx(jc, u), uci), 1e-6)
     rx = _rx(rng, tx.numpy(), sigma=1.0)
     got, corr = tpucch.pucch1_rx(tc, torch.as_tensor(rx))
-    want, wcorr = jpucch.pucch1_rx(jc, jnp.asarray(rx))
+    want, wcorr = _jx(lambda r: jpucch.pucch1_rx(jc, r), rx)
     _same(got, want)
     np.testing.assert_allclose(corr.numpy(), np.asarray(wcorr), rtol=1e-4)
 
@@ -95,12 +107,12 @@ def test_pucch2_matches_jax(n_bits, n_prb):
     rng = np.random.default_rng(n_bits)
     uci = rng.integers(0, 2, (B, n_bits)).astype(np.int8)
     np.testing.assert_array_equal(tpucch.pucch2_encode(tc, torch.as_tensor(uci)).numpy(),
-                                  np.asarray(jpucch.pucch2_encode(jc, jnp.asarray(uci))))
+                                  np.asarray(_jx(lambda u: jpucch.pucch2_encode(jc, u), uci)))
     tx = tpucch.pucch2_tx(tc, torch.as_tensor(uci))
-    _same(tx, jpucch.pucch2_tx(jc, jnp.asarray(uci)), 1e-6)
+    _same(tx, _jx(lambda u: jpucch.pucch2_tx(jc, u), uci), 1e-6)
     rx = _rx(rng, tx.numpy(), sigma=0.5, fading=False)
     got, ok = tpucch.pucch2_rx(tc, torch.as_tensor(rx))
-    want, wok = jpucch.pucch2_rx(jc, jnp.asarray(rx))
+    want, wok = _jx(lambda r: jpucch.pucch2_rx(jc, r), rx)
     _same(ok, wok)
     _same(got, want)
     assert bool(ok[:-1].all()) and torch.equal(got[:-1], torch.as_tensor(uci[:-1]))
@@ -118,10 +130,10 @@ def test_pucch34_matches_jax(kw):
     rng = np.random.default_rng(kw["n_bits"])
     uci = rng.integers(0, 2, (B, kw["n_bits"])).astype(np.int8)
     tx = tpucch.pucch34_tx(tc, torch.as_tensor(uci))
-    _same(tx, jpucch.pucch34_tx(jc, jnp.asarray(uci)), 1e-6)
+    _same(tx, _jx(lambda u: jpucch.pucch34_tx(jc, u), uci), 1e-6)
     rx = _rx(rng, tx.numpy(), sigma=0.5)
     got, ok = tpucch.pucch34_rx(tc, torch.as_tensor(rx))
-    want, wok = jpucch.pucch34_rx(jc, jnp.asarray(rx))
+    want, wok = _jx(lambda r: jpucch.pucch34_rx(jc, r), rx)
     _same(ok, wok)
     _same(got, want)
 
@@ -131,11 +143,11 @@ def test_small_block_uci_matches_jax(n_bits, E):
     rng = np.random.default_rng(E)
     uci = rng.integers(0, 2, (B, n_bits)).astype(np.int8)
     cw = tpucch.uci_encode(n_bits, E, torch.as_tensor(uci))
-    np.testing.assert_array_equal(cw.numpy(), np.asarray(jpucch.uci_encode(n_bits, E, jnp.asarray(uci))))
+    np.testing.assert_array_equal(cw.numpy(), np.asarray(_jx(lambda u: jpucch.uci_encode(n_bits, E, u), uci)))
     llr = ((1 - 2.0 * cw.numpy()) + 1.2 * rng.standard_normal(cw.shape)).astype(np.float32)
     llr[-1] = rng.standard_normal(E)
     got, ok = tpucch.uci_decode(n_bits, E, torch.as_tensor(llr))
-    want, wok = jpucch.uci_decode(n_bits, E, jnp.asarray(llr))
+    want, wok = _jx(lambda x: jpucch.uci_decode(n_bits, E, x), llr)
     _same(got, want)
     _same(ok, wok)
     # the confidence behind ok, from the folded LLRs
@@ -213,13 +225,13 @@ def test_prach_freq_matches_jax(kw):
     rng = np.random.default_rng(tc.n_preambles)
     pre = rng.integers(0, min(64, tc.n_preambles), B)
     tx = tprach.prach_tx(tc, torch.as_tensor(pre))
-    want_tx = np.asarray(jprach.prach_tx(jc, jnp.asarray(pre)))
+    want_tx = np.asarray(_jx(lambda x: jprach.prach_tx(jc, x), pre))
     _same(tx, want_tx, 1e-6 * np.abs(want_tx).max())
     d = 3                                  # an integer delay in the L_RA domain
     ramp = np.exp(-2j * np.pi * d * np.arange(tc.l_ra) / tc.l_ra).astype(np.complex64)
     rx = _rx(rng, tx.numpy() * ramp, sigma=4.0)
     got = tprach.prach_rx(tc, torch.as_tensor(rx))
-    _check_detect(got, jprach.prach_rx(jc, jnp.asarray(rx)))
+    _check_detect(got, _jx(lambda x: jprach.prach_rx(jc, x), rx))
     assert got["detected"].numpy().tolist() == [True] * (B - 1) + [False]
 
 
@@ -234,8 +246,8 @@ def test_prach_td_matches_jax(kw):
     assert tc.freq_cfg().n_preambles > 0
     pre = rng.integers(0, min(64, tc.freq_cfg().n_preambles), B)
     tx = tprach.prach_td_tx(tc, torch.as_tensor(pre))
-    want_tx = np.asarray(jprach.prach_td_tx(jc, jnp.asarray(pre)))
+    want_tx = np.asarray(_jx(lambda x: jprach.prach_td_tx(jc, x), pre))
     _same(tx, want_tx, 1e-5 * np.abs(want_tx).max())
     rx = _rx(rng, np.roll(tx.numpy(), 5, axis=-1), sigma=3.0)
     got = tprach.prach_td_rx(tc, torch.as_tensor(rx))
-    _check_detect(got, jprach.prach_td_rx(jc, jnp.asarray(rx)))
+    _check_detect(got, _jx(lambda x: jprach.prach_td_rx(jc, x), rx))

@@ -3,8 +3,8 @@
 * pusch_tx: complex samples within 1e-5 of the largest magnitude (float32
   FFTs of two libraries), scrambled codeword bits equal.
 * pusch_rx through the kernel path of both (frontend and decoder
-  "pallas" / "kernel", check_every=1, B=2; JAX in interpret mode): equal
-  tb_ok and tb_bits.  20 PRB gives BG1 Z=384, C=2 and the bf16-staged
+  "pallas" / "kernel", check_every=1, B=2; JAX in interpret mode, compiled
+  by XLA at its CPU optimization level 0): equal tb_ok and tb_bits.  20 PRB gives BG1 Z=384, C=2 and the bf16-staged
   decode; 24 PRB gives Z=320 and the f32 one.
 * convert.py: the port's derived configuration values equal the JAX ones.
 * The port package and chip_smoke.py import no JAX and nothing of the JAX
@@ -30,9 +30,17 @@ from openairinterface5g_tpu_torch.convert import config_from_jax, harq_from_nump
 from openairinterface5g_tpu_torch.models import pusch as tpusch
 from openairinterface5g_tpu_torch.ops import pusch_frontend as tfe
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 ROOT = Path(__file__).resolve().parent.parent
 
 KERNEL_PATH = dict(decoder_backend="pallas", frontend_backend="pallas", decoder_check_every=1)
+
+
+def _compiled(fn, *args):
+    """fn compiled by XLA at its CPU backend's optimization level 0, called
+    on args."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
 
 
 def _tb(cfg, B, seed):
@@ -64,7 +72,7 @@ def _rx_case(n_prb, seed):
     noise = rng.standard_normal((2, *tx.shape)).astype(np.float32)
     rx = (tx + 0.1 * tx[:, ::-1] + 0.05 * (noise[0] + 1j * noise[1])).astype(np.complex64)
     with pltpu.force_tpu_interpret_mode():
-        jout = jax.jit(lambda r: jpusch.pusch_rx(jcfg, r, n_iters=8))(jnp.asarray(rx))
+        jout = _compiled(lambda r: jpusch.pusch_rx(jcfg, r, n_iters=8), jnp.asarray(rx))
     tout = tpusch.pusch_rx(tcfg, torch.as_tensor(rx), n_iters=8)
     jok = np.asarray(jout["tb_ok"])
     assert jok.all()
@@ -153,7 +161,10 @@ def test_port_imports_no_jax():
             "          'models.pdcch', 'models.pbch', 'models.sync', 'models.pucch',\n"
             "          'models.prach', 'models.uci_on_pusch', 'data.prach_tables',\n"
             "          'sim.polartest', 'sim.smallblocktest', 'sim.pbchsim', 'sim.pucchsim',\n"
-            "          'sim.prachsim'):\n"
+            "          'sim.prachsim', 'phy.refsig', 'models.srs', 'models.prs', 'models.mu_mimo',\n"
+            "          'models.gnb', 'models.ue', 'data.lte_tables', 'coding.turbo', 'lte.params',\n"
+            "          'lte.refsig', 'lte.segmentation', 'lte.rate_matching', 'lte.pdsch',\n"
+            "          'lte.pusch', 'sim.lte_dlsim', 'sim.lte_ulsim'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

@@ -137,6 +137,8 @@ from openairinterface5g_tpu_torch.phy import transform_precoding as ttp  # noqa:
 
 import pytest  # noqa: E402
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 TX_TOL = 1e-6           # TX grids, absolute
 EST_TOL = 1e-5          # estimates, noise variance, equalized symbols: of max |.|
 LLR_TOL = 1e-4          # LLRs: of max |LLR|

@@ -49,6 +49,8 @@ from openairinterface5g_tpu_torch.ops import ldpc_decoder, pusch_frontend
 from openairinterface5g_tpu_torch.sim import (autotest, channel, dlschsim, dlsim, ldpctest,
                                               ulschsim, ulsim)
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 ROOT = Path(__file__).resolve().parent.parent
 PROFILES = ["AWGN", *sorted(jch.TDL_PROFILES)]
 
@@ -364,9 +366,9 @@ def test_autotest_cases_match_jax():
     modules = {c[1] for c in autotest.CASES}
     assert modules == set(autotest.NOT_PORTED) | {"ldpctest", "ulsim", "dlsim", "ulschsim",
                                                   "dlschsim", "polartest", "pbchsim",
-                                                  "pucchsim", "prachsim"}
-    assert autotest.NOT_PORTED == {"nbiotsim": 8, "lte_softmodem_sim": 8, "lte_dlsim": 8,
-                                   "lte_ulsim": 8}
+                                                  "pucchsim", "prachsim", "lte_dlsim",
+                                                  "lte_ulsim"}
+    assert autotest.NOT_PORTED == {"nbiotsim": 8, "lte_softmodem_sim": 9}
     for m in set(modules) - set(autotest.NOT_PORTED):
         assert (ROOT / "openairinterface5g_tpu_torch/sim" / f"{m}.py").exists()
 

@@ -7,8 +7,11 @@ JAX simulator's step written out with the JAX package's functions (the
 expression of its ``step``, with the draws replaced).  The per-trial error
 flags must be equal.  Then each CLI at a small size on the CPU: the JAX
 simulator's header, SNR lines and pass string, ``--device cuda`` raising
-without CUDA, and the autotest cases judged.
+without CUDA, and the autotest cases judged.  Each JAX step is compiled as
+one program by XLA at its CPU optimization level 0 (eagerly it compiles op
+by op, several times as long).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,15 @@ from openairinterface5g_tpu.models import prach as jprach
 from openairinterface5g_tpu.models import pucch as jpucch
 from openairinterface5g_tpu_torch.sim import (autotest, pbchsim, polartest, prachsim, pucchsim,
                                               smallblocktest)
+
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
+
+def _jit(fn, *examples):
+    """fn compiled for the shapes of the numpy examples by XLA at its CPU
+    backend's optimization level 0."""
+    args = [jnp.asarray(a) for a in examples]
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})
 
 
 def _cplx(rng, shape):
@@ -41,15 +53,20 @@ def test_polartest_trial_matches_jax():
     rng = np.random.default_rng(0)
     pay = rng.integers(0, 2, (16, A)).astype(np.int8)
     noise = rng.standard_normal((16, p.E)).astype(np.float32)
+    jp = jpolar.polar_params(K=p.K, E=p.E, n_max=10, i_il=False, n_pc=3, i_bil=True)
+
+    def step(pay_, noise_, snr_):
+        # the JAX simulator's step (sim/polartest.py), its draws replaced
+        enc = jpolar.encode(jp, jcrc_attach(pay_, crc))
+        sigma = 10 ** (-snr_ / 20)
+        y = 1.0 - 2.0 * enc.astype(jnp.float32) + sigma * noise_
+        bits, ok = jpolar.decode_with_crc(jp, 2 * y / sigma ** 2, crc, list_size=8)
+        return jnp.logical_or(~ok, jnp.any(bits != pay_, axis=-1))
+
+    jstep = _jit(step, pay, noise, np.float32(0.0))
     for snr in (-4.0, 0.0):
         got = polartest.trial(p, crc, torch.as_tensor(pay), torch.as_tensor(noise), snr)
-        # the JAX simulator's step (sim/polartest.py), its draws replaced
-        jp = jpolar.polar_params(K=p.K, E=p.E, n_max=10, i_il=False, n_pc=3, i_bil=True)
-        enc = jpolar.encode(jp, jcrc_attach(jnp.asarray(pay), crc))
-        sigma = 10 ** (-jnp.float32(snr) / 20)
-        y = 1.0 - 2.0 * enc.astype(jnp.float32) + sigma * jnp.asarray(noise)
-        bits, ok = jpolar.decode_with_crc(jp, 2 * y / sigma ** 2, crc, list_size=8)
-        want = jnp.logical_or(~ok, jnp.any(bits != jnp.asarray(pay), axis=-1))
+        want = jstep(jnp.asarray(pay), jnp.asarray(noise), jnp.float32(snr))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 0 < int(got.sum()) or snr == 0.0
 
@@ -60,9 +77,12 @@ def test_smallblocktest_trial_matches_jax():
         pay = rng.integers(0, 2, (64, K)).astype(np.int8)
         noise = rng.standard_normal((64, 32)).astype(np.float32)
         got = smallblocktest.trial(torch.as_tensor(pay), torch.as_tensor(noise), -4.0)
-        sigma = 10 ** (-jnp.float32(-4.0) / 20)
-        y = 1.0 - 2.0 * jsb.encode(jnp.asarray(pay)).astype(jnp.float32) + sigma * noise
-        want = jnp.any(jsb.decode(2 * y / sigma ** 2, K) != pay, axis=-1)
+        def step(pay_, noise_, K=K):
+            sigma = 10 ** (-jnp.float32(-4.0) / 20)
+            y = 1.0 - 2.0 * jsb.encode(pay_).astype(jnp.float32) + sigma * noise_
+            return jnp.any(jsb.decode(2 * y / sigma ** 2, K) != pay_, axis=-1)
+
+        want = _jit(step, pay, noise)(jnp.asarray(pay), jnp.asarray(noise))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert got.any()
 
@@ -75,10 +95,13 @@ def test_pbchsim_trial_matches_jax():
     noise = _cplx(rng, (16, 1, 4, 240))
     got = pbchsim.trial(cfg, torch.as_tensor(pay), torch.as_tensor(h), torch.as_tensor(noise),
                         -9.0)
-    tile = jpbch.ssb_generate(jcfg, jnp.asarray(pay))
-    rx = h * tile[:, None] + 10 ** (-jnp.float32(-9.0) / 20) * noise
-    bits, ok = jpbch.ssb_receive(jcfg, rx.astype(jnp.complex64), list_size=8)
-    want = jnp.logical_or(~ok, jnp.any(bits != pay, axis=-1))
+    def step(pay_, h_, noise_):
+        tile = jpbch.ssb_generate(jcfg, pay_)
+        rx = h_ * tile[:, None] + 10 ** (-jnp.float32(-9.0) / 20) * noise_
+        bits, ok = jpbch.ssb_receive(jcfg, rx.astype(jnp.complex64), list_size=8)
+        return jnp.logical_or(~ok, jnp.any(bits != pay_, axis=-1))
+
+    want = _jit(step, pay, h, noise)(jnp.asarray(pay), jnp.asarray(h), jnp.asarray(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -102,10 +125,15 @@ def test_pucchsim_trial_matches_jax(argv):
     tx_fn, rx_fn = {0: (jpucch.pucch0_tx, jpucch.pucch0_rx), 1: (jpucch.pucch1_tx, jpucch.pucch1_rx),
                     2: (jpucch.pucch2_tx, jpucch.pucch2_rx)}.get(
         args.format, (jpucch.pucch34_tx, jpucch.pucch34_rx))
-    rx = (h * tx_fn(jcfg, jnp.asarray(uci))[:, None]
-          + 10 ** (-jnp.float32(snr) / 20) * noise).astype(jnp.complex64)
-    out, ok = rx_fn(jcfg, rx)
-    want = out != uci if args.format in (0, 1) else jnp.logical_or(~ok, jnp.any(out != uci, -1))
+    def step(uci_, h_, noise_):
+        rx = (h_ * tx_fn(jcfg, uci_)[:, None]
+              + 10 ** (-jnp.float32(snr) / 20) * noise_).astype(jnp.complex64)
+        out, ok = rx_fn(jcfg, rx)
+        if args.format in (0, 1):
+            return out != uci_
+        return jnp.logical_or(~ok, jnp.any(out != uci_, -1))
+
+    want = _jit(step, uci, h, noise)(jnp.asarray(uci), jnp.asarray(h), jnp.asarray(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.any() and not got.all()
 
@@ -125,12 +153,15 @@ def test_prachsim_trial_matches_jax(argv):
     snr = -36.0
     got = prachsim.trial(cfg, torch.as_tensor(pre), torch.as_tensor(h), torch.as_tensor(noise),
                          snr, args.n_rb)
-    tx = jprach.prach_td_tx(jcfg, jnp.asarray(pre))
-    tx_lev = jnp.mean(jnp.abs(tx) ** 2)
-    sigma2 = tx_lev * 10 ** (-jnp.float32(snr) / 10) / (12 * args.n_rb / cfg.l_ra)
-    rx = (h * tx[:, None] + jnp.sqrt(sigma2 / 2) * noise).astype(jnp.complex64)
-    out = jprach.prach_td_rx(jcfg, rx)
-    want = jnp.logical_or(~out["detected"], out["preamble"] != pre)
+    def step(pre_, h_, noise_):
+        tx = jprach.prach_td_tx(jcfg, pre_)
+        tx_lev = jnp.mean(jnp.abs(tx) ** 2)
+        sigma2 = tx_lev * 10 ** (-jnp.float32(snr) / 10) / (12 * args.n_rb / cfg.l_ra)
+        rx = (h_ * tx[:, None] + jnp.sqrt(sigma2 / 2) * noise_).astype(jnp.complex64)
+        out = jprach.prach_td_rx(jcfg, rx)
+        return jnp.logical_or(~out["detected"], out["preamble"] != pre_)
+
+    want = _jit(step, pre, h, noise)(jnp.asarray(pre), jnp.asarray(h), jnp.asarray(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

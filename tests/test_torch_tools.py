@@ -8,6 +8,8 @@ import torch
 from openairinterface5g_tpu_torch.ops import ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.tools import bench_ldpc_kernel, bench_overhead
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 TINY = ["--device", "cpu", "--bg", "2", "--Z", "64", "--cbs", "2", "--reps", "2"]
 
 
@@ -39,7 +41,10 @@ def test_tools_without_cuda_raise(monkeypatch):
         bench_overhead.main([])
 
 
-def test_bench_overhead_cpu():
+def test_bench_overhead_cpu(monkeypatch):
+    # two steps per probe instead of eight: the plain K1 decode at BG1 Z=384
+    # sets this test's time on the CPU
+    monkeypatch.setattr(bench_overhead, "R", 2)
     n0 = dict(ldpc_decoder.launches), dict(tiny.launches)
     out = bench_overhead.run("cpu", cbs=1)
     assert [r["probe"][0] for r in out] == ["a", "b", "d", "e", "c"]

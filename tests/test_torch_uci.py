@@ -11,13 +11,16 @@ of two libraries); the receivers' codeword LLRs (the data after the demux)
 within 1e-4 of their largest magnitude; tb_ok, tb_bits, ack_bits and every
 UCI stream's bits and ok flag equal.  JAX runs its XLA path (frontend and
 decoder "xla" pinned: its CPU default would switch paths on its own), the
-port its reference path, eagerly, as the JAX package's own UCI tests run.
+port its reference path; JAX's TX and RX are each compiled as one program
+by XLA at its CPU optimization level 0 (eagerly they compile op by op,
+about three times as long).
 With the fused frontend (JAX "pallas" in interpret mode, the port "kernel",
 its plain version on the CPU) the LLRs agree within K3's bar, 2e-4 of their
 largest magnitude, and the decode is equal.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,11 +33,19 @@ from openairinterface5g_tpu_torch.models import pusch as tpusch
 from openairinterface5g_tpu_torch.models import uci_on_pusch as tuci
 from openairinterface5g_tpu_torch.ops import pusch_frontend as tfe
 
+torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
+
 JCFG = jpusch.PuschConfig(mu=1, n_prb=8, mcs=16, n_layers=2, n_rx=2, frontend_backend="xla",
                           decoder_backend="xla")
 UCIS = [dict(n_ack_bits=6, n_csi1_bits=16, n_csi2_bits=40),
         dict(n_ack_bits=2, n_csi1_bits=16, n_csi2_bits=40)]
 B = 3
+
+
+def _compiled(fn, *args):
+    """fn compiled by XLA at its CPU backend's optimization level 0, called
+    on args."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
 
 
 @pytest.mark.parametrize("kw", UCIS + [dict(n_ack_bits=2, n_csi1_bits=6, n_csi2_bits=32),
@@ -52,9 +63,9 @@ def _rx(kw, tb, rng):
     """JCFG's UCI TX through a 2x2 channel at 12 dB, as numpy samples; the
     payloads come first from rng."""
     ack, c1, c2 = (rng.integers(0, 2, (B, n)).astype(np.int8) for n in kw.values())
-    jtx, jscr = jpusch.pusch_tx(JCFG, jnp.asarray(tb), uci_cfg=juci.UciOnPuschConfig(**kw),
-                                ack_bits=jnp.asarray(ack), csi1_bits=jnp.asarray(c1),
-                                csi2_bits=jnp.asarray(c2))
+    jtx, jscr = _compiled(lambda t, a, b, c: jpusch.pusch_tx(
+        JCFG, t, uci_cfg=juci.UciOnPuschConfig(**kw), ack_bits=a, csi1_bits=b, csi2_bits=c),
+        jnp.asarray(tb), jnp.asarray(ack), jnp.asarray(c1), jnp.asarray(c2))
     jtx = np.asarray(jtx)
     H = (np.eye(2) + 0.3 * (rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))))
     rx = np.einsum("rl,bls->brs", H, jtx)
@@ -92,7 +103,7 @@ def test_uci_on_pusch_matches_jax(kw):
                                    for k, v in zip(("ack", "csi1", "csi2"), sent)})
     np.testing.assert_array_equal(tscr.numpy(), np.asarray(jscr))
     assert np.abs(ttx.numpy() - jtx).max() <= 1e-5 * np.abs(jtx).max()
-    jout = jpusch.pusch_rx(JCFG, jnp.asarray(rx), n_iters=8, uci_cfg=ju)
+    jout = _compiled(lambda r: jpusch.pusch_rx(JCFG, r, n_iters=8, uci_cfg=ju), jnp.asarray(rx))
     tout = tpusch.pusch_rx(tcfg, torch.as_tensor(rx), n_iters=8, uci_cfg=tu)
     jl = np.asarray(jout["llrs"])
     assert np.abs(tout["llrs"].numpy() - jl).max() <= 1e-4 * np.abs(jl).max()
@@ -121,7 +132,8 @@ def test_uci_takes_the_fused_frontend(monkeypatch):
     tout = tpusch.pusch_rx(kcfg, torch.as_tensor(rx), uci_cfg=tu)
     assert calls == ["frontend", "frontend_planes"]
     jcfg = dataclasses.replace(JCFG, frontend_backend="pallas")
-    jout = jpusch.pusch_rx(jcfg, jnp.asarray(rx), uci_cfg=juci.UciOnPuschConfig(**kw))
+    jout = _compiled(lambda r: jpusch.pusch_rx(jcfg, r, uci_cfg=juci.UciOnPuschConfig(**kw)),
+                     jnp.asarray(rx))
     rout = tpusch.pusch_rx(config_from_jax(JCFG), torch.as_tensor(rx), uci_cfg=tu)
     for ref in (np.asarray(jout["llrs"]), rout["llrs"].numpy()):
         assert np.abs(tout["llrs"].numpy() - ref).max() <= 2e-4 * np.abs(ref).max()
