@@ -49,6 +49,12 @@ Drives the port's paths with every hand-written CUDA kernel:
     the gNB and UE slots at 273 PRB through K3 and K1, MU-MIMO through K1,
     SRS and PRS at full width, the LTE autotest cases, a 20 MHz LTE PDSCH
     and one turbo decode.
+  * slice 11, the LTE control channels (``coding/viterbi.py``,
+    ``lte/pbch.py``, ``pdcch.py``, ``pucch.py``, ``srs.py``, ``prach.py``),
+    NB-IoT (``lte/nbiot.py``, ``sim/nbiotsim.py``) and the lte-softmodem loop
+    (``lte/mac.py``, ``rrc.py``, ``l3/per.py``, ``runtime/lte_softmodem.py``):
+    each control channel at 20 MHz, the nbiotsim and lte-softmodem-loop
+    autotest cases.  This slice has no kernel: neither K1 nor K3 launches.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -137,6 +143,22 @@ Phases, one line or more each:
      LTE autotest cases in this process, a 100-PRB MCS-28 LTE PDSCH batch
      (8/8 TBs) and one turbo decode at K = 6144, neither launching K1 nor
      K3; every K3 and K1 call of (a)-(c) held against its plain version
+ 11. slice 11, at 100 PRB (20 MHz) over _two_rx (2 RX, the channel known),
+     CUDA-event ms per batch of each step: (a) the PBCH of 1, 2 and 4 ports
+     (4 frames combined, B = 8): every MIB and its mask; one control symbol
+     (B = 8) with PCFICH (CFI 1-3), PHICH (ACK, NACK) and two DCIs of
+     DCI_A_11 bits (AL 2 at CCE 2, AL 8 at CCE 8, two RNTIs): every CFI and
+     ACK, both DCIs through pdcch_blind_decode's default search space, none
+     for a third RNTI; one viterbi.decode at L = 43; (b) PUCCH 1a and 1b of
+     3 users on one PRB (covers 0/1/2) and PUCCH 2 with 4 and 13 CQI bits,
+     B = 64; LTE PRACH formats 0-3, 64 preambles, a delay of 5 samples, 2
+     RX, B = 32 (preambles, delays within PRACH_DELAY_TOL); SRS over 96 PRB,
+     its SNR within 1 dB of the set 15 dB; (c) the nbiotsim autotest case
+     in this process, its lines; (d) the lte-softmodem-loop case (4 cycles)
+     in this process: its RRC and cycle lines equal LTE_LOOP_r5.txt:10-14;
+     ms of the RRC connect and per cycle by the host clock, split by stage
+     (each stage's calls ended by a synchronize); none of (a)-(d) launches
+     K1 or K3
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -160,6 +182,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import time
@@ -167,8 +190,15 @@ import time
 import torch
 
 from openairinterface5g_tpu_torch.coding import ldpc, rate_matching, turbo
+from openairinterface5g_tpu_torch.coding import viterbi as lte_viterbi
 from openairinterface5g_tpu_torch.config import make_frame_params
+from openairinterface5g_tpu_torch.lte import params as lte_params
+from openairinterface5g_tpu_torch.lte import pbch as lte_pbch
+from openairinterface5g_tpu_torch.lte import pdcch as lte_pdcch
 from openairinterface5g_tpu_torch.lte import pdsch as lte_pdsch
+from openairinterface5g_tpu_torch.lte import prach as lte_prach
+from openairinterface5g_tpu_torch.lte import pucch as lte_pucch
+from openairinterface5g_tpu_torch.lte import srs as lte_srs
 from openairinterface5g_tpu_torch.models import (csirs, gnb, mu_mimo, pbch, pdcch, pdsch, prach,
                                                  prs, pucch, pusch, srs, sync, uci_on_pusch, ue)
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
@@ -176,6 +206,7 @@ from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
 from openairinterface5g_tpu_torch.phy import ofdm
 from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
+from openairinterface5g_tpu_torch.runtime import lte_softmodem
 from openairinterface5g_tpu_torch.sim import autotest, dlsim, prachsim, pucchsim, ulsim
 from openairinterface5g_tpu_torch.sim.channel import _complex_normal, add_noise, flat_gain
 from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
@@ -771,14 +802,16 @@ def _check_kernels(tag: str, k1: int, k3: int, want_k1: bool, want_k3: bool) -> 
                              f"{{'K1': {want_k1}, 'K3': {want_k3}}}")
 
 
-def _sim_cases(cases, held: dict) -> None:
+def _sim_cases(cases, held: dict, show_output: bool = False) -> dict:
     """Each (autotest id, added flags) of `cases` through the port's autotest
     in this process, on the card: its verdict, its K1 (layered f32) and K3
     launches against what its configuration takes, its first K1 and K3
-    calls held against their plain versions."""
+    calls held against their plain versions.  show_output prints each
+    case's own lines too.  Returns each case's autotest result."""
     table = {c[0]: c[1:4] for c in autotest.CASES}
     table.update({cid: ("ulsim", argv, "PUSCH test OK")
                   for cid, argv in autotest.CONFORMANCE_CASES})
+    results = {}
     for cid, extra in cases:
         module, argv, pass_str = table[cid]
         argv = [*argv, *extra]
@@ -788,10 +821,11 @@ def _sim_cases(cases, held: dict) -> None:
         with _held_to_plain(name, held, lines):
             r = autotest.judge(cid, module, argv, pass_str, device="cuda")
         k1, k3 = ldpc_decoder.launches["layered_f32"] - k1_0, fe.launches - k3_0
-        where = f"passed at {r.last_snr_db:.2f} dB" if r.status == "PASS" else r.status
-        print(f"simulator {name}: {where} in {r.seconds:.1f} s; first: {r.first_snr_line}; "
-              f"launches K1 {k1}, K3 {k3}")
-        for line in lines:
+        where = r.status if r.status != "PASS" else \
+            "passed" if r.last_snr_db is None else f"passed at {r.last_snr_db:.2f} dB"
+        first = f"; first: {r.first_snr_line}" if r.first_snr_line else ""
+        print(f"simulator {name}: {where} in {r.seconds:.1f} s{first}; launches K1 {k1}, K3 {k3}")
+        for line in lines + (r.output.splitlines() if show_output else []):
             print(f"  {line}")
         if r.status != "PASS":
             raise AssertionError(f"simulator {name}: {r.status}\n{r.output}")
@@ -804,6 +838,8 @@ def _sim_cases(cases, held: dict) -> None:
         _check_kernels(f"simulator {name}", k1, k3,
                        cfg is not None and cfg.decoder_backend == "kernel",
                        cfg is not None and fe.supported(cfg))
+        results[name] = r
+    return results
 
 
 def phase_simulators() -> dict:
@@ -1471,6 +1507,271 @@ def phase_slice10(dev, gen, card: str) -> dict:
             "ms": {**a["ms"], "ue_receive_slot": b["ms"], **c["ms"], **d["ms"]}}
 
 
+# slice 11: the LTE control channels, NB-IoT and the lte-softmodem loop
+LTE_RB = 100              # 20 MHz, the LTE channels' full width
+LTE_CELL, LTE_SF = 17, 1
+DCI_A_11 = 27             # the DCI size of the JAX package's PDCCH tests: L = A + 16 = 43
+DCI_RNTIS = (0x5678, 0x1234)   # an AL-2 DCI at CCE 2 and an AL-8 DCI at CCE 8
+B_PUCCH_11, B_PRACH_11 = 64, 32
+SRS_SNR_DB = 15.0
+# bins of the 1024-point delay a detection may miss by: the peak's bin (0.5)
+# and the floor in its shift window's start (1)
+PRACH_DELAY_TOL = 1.5
+LTE_LOOP_CYCLES = 4
+LTE_LOOP_RECORD = "LTE_LOOP_r5.txt"   # the JAX loop's lines; 10-14 hold its RRC line, cycles 0-3
+
+
+def _lte_air(re: torch.Tensor, gen) -> torch.Tensor:
+    """(N, 14, n_sc) LTE subframe REs at LTE_RB -> (N, 2, 14, n_sc): OFDM,
+    the bench's 2-RX channel (_two_rx), OFDM demodulation."""
+    fp = lte_params.make_lte_frame_params(LTE_RB)
+    tx = lte_params.ofdm_modulate(fp, lte_params.map_to_grid(fp, re[:, None]))
+    return lte_params.extract_from_grid(fp, lte_params.ofdm_demodulate(fp, _two_rx(tx, gen)))
+
+
+def _two_rx_h(n: int, dev) -> torch.Tensor:
+    """(n, 2, LTE_RB * 12) the flat channel of _two_rx: antenna r gets w_r +
+    0.1 w_(1-r) of the one TX antenna, w = (1, 0.6 + 0.3j)."""
+    h = torch.tensor([1.0 + 0.1 * (0.6 + 0.3j), 0.6 + 0.3j + 0.1], dtype=torch.complex64,
+                     device=dev)
+    return h[None, :, None].expand(n, 2, 12 * LTE_RB)
+
+
+def _lte_downlink_control(dev, gen, card: str) -> dict:
+    """Phase 11 (a): PBCH (4 frames, 1/2/4 ports), then one control symbol
+    carrying PCFICH (CFI 1-3), PHICH (ACK, NACK) and two DCIs, all at 100 PRB
+    over _two_rx with the channel known, B = 8; one Viterbi decode at L = 43."""
+    ms = {}
+    for ports in (1, 2, 4):
+        cfg = lte_pbch.LtePbchConfig(n_rb=LTE_RB, cell_id=LTE_CELL, n_tx_ports=ports, n_rx=2)
+        mib = _bits(gen, (B, 24))
+        grids = lte_pbch.pbch_tx_grids(cfg, mib)                         # (B, 4, 14, n_sc)
+        rx = _lte_air(grids.reshape(4 * B, 14, -1), gen).view(B, 4, 2, 14, -1)
+        h = _two_rx_h(B, dev)
+        got, ok, found = lte_pbch.pbch_rx_grids(cfg, rx, h)
+        if not (bool(ok.all()) and torch.equal(got, mib) and bool((found == ports).all())):
+            raise AssertionError(f"LTE PBCH {ports} ports: ok {ok.tolist()}, masks "
+                                 f"{found.tolist()}, MIB equal {torch.equal(got, mib)}")
+        ms[f"pbch_{ports}port"] = _med_ms(lambda: lte_pbch.pbch_rx_grids(cfg, rx, h))
+    print(f"LTE PBCH {LTE_RB} PRB, 4 frames combined, 2 RX, B={B}: {B}/{B} MIBs with the mask "
+          f"of 1, 2 and 4 ports; pbch_rx_grids " + ", ".join(
+              f"{p} port(s) {ms[f'pbch_{p}port']:.4f}" for p in (1, 2, 4)) + f" ms on {card}")
+
+    regs = lte_pdcch.symbol0_regs(LTE_RB, LTE_CELL)
+    sc_pc = torch.as_tensor(regs[lte_pdcch.pcfich_reg_indices(LTE_RB, LTE_CELL)].reshape(-1),
+                            device=dev)
+    sc_ph = torch.as_tensor(regs[lte_pdcch.phich_reg_indices(LTE_RB, LTE_CELL)].reshape(-1),
+                            device=dev)
+    cfi = [1 + i % 3 for i in range(B)]
+    ack = [i % 2 for i in range(B)]
+    pays = [_bits(gen, (B, DCI_A_11)) for _ in DCI_RNTIS]
+    row = (lte_pdcch.pdcch_tx_symbol0(LTE_RB, LTE_CELL, LTE_SF, pays[0], DCI_RNTIS[0], 2, 2)
+           + lte_pdcch.pdcch_tx_symbol0(LTE_RB, LTE_CELL, LTE_SF, pays[1], DCI_RNTIS[1], 8, 8))
+    row[:, sc_pc] = torch.stack([lte_pdcch.pcfich_encode(c, LTE_SF, LTE_CELL, dev) for c in cfi])
+    row[:, sc_ph] = torch.stack([lte_pdcch.phich_encode(a, 0, dev) for a in ack])
+    re = torch.zeros((B, 14, 12 * LTE_RB), dtype=torch.complex64, device=dev)
+    re[:, 0] = row
+    y0 = _lte_air(re, gen)[:, :, 0]                                      # (B, 2, n_sc)
+    h = _two_rx_h(B, dev)
+
+    def pcfich():
+        return lte_pdcch.pcfich_decode(y0[..., sc_pc], h[..., sc_pc], LTE_SF, LTE_CELL)
+
+    def phich():
+        return lte_pdcch.phich_decode(y0[..., sc_ph], h[..., sc_ph])
+
+    def search(rnti):
+        return lte_pdcch.pdcch_blind_decode(y0, h, LTE_RB, LTE_CELL, LTE_SF, rnti, DCI_A_11)
+
+    if pcfich().tolist() != cfi or phich().tolist() != ack:
+        raise AssertionError(f"LTE PCFICH {pcfich().tolist()} (sent {cfi}), PHICH "
+                             f"{phich().tolist()} (sent {ack})")
+    levels = []
+    for rnti, pay, al in zip(DCI_RNTIS, pays, (2, 8)):
+        got, found, level = search(rnti)
+        if not (bool(found.all()) and torch.equal(got, pay) and bool((level <= al).all())):
+            raise AssertionError(f"LTE PDCCH RNTI {rnti:#x} (AL {al}): found {found.tolist()}, "
+                                 f"levels {level.tolist()}, payload equal {torch.equal(got, pay)}")
+        levels.append(sorted(set(level.tolist())))
+    if bool(search(0x0BAD)[1].any()):
+        raise AssertionError("LTE PDCCH: another RNTI found a DCI")
+    ms.update(pcfich=_med_ms(pcfich), phich=_med_ms(phich),
+              pdcch_blind_decode=_med_ms(lambda: search(DCI_RNTIS[1])))
+    L = DCI_A_11 + 16
+    bits = _bits(gen, (B, L))
+    coded = lte_viterbi.encode(bits)
+    llr = 4.0 * (1.0 - 2.0 * coded.float()) + 2.0 * torch.randn(coded.shape, generator=gen,
+                                                                device=dev)
+    if not torch.equal(lte_viterbi.decode(llr), bits):
+        raise AssertionError(f"viterbi.decode at L={L}: bits differ from the sent ones")
+    ms["viterbi_decode"] = _med_ms(lambda: lte_viterbi.decode(llr))
+    n_cand = len(lte_pdcch._search_space(LTE_RB, LTE_CELL, LTE_SF, DCI_A_11, (1, 2, 4, 8), 6,
+                                         None, dev)[0])
+    print(f"LTE control symbol {LTE_RB} PRB, 2 RX, B={B}: PCFICH CFI {cfi}, PHICH {ack} "
+          f"(0 = ACK) decoded; PDCCH blind search over {n_cand} candidates (ALs 1, 2, 4, 8): "
+          f"the AL-2 DCI of {DCI_RNTIS[0]:#x} found at AL {levels[0]}, the AL-8 DCI of "
+          f"{DCI_RNTIS[1]:#x} at AL {levels[1]} (a lower AL's candidate inside its CCEs decodes "
+          f"first), payloads equal, another RNTI finds none; ms per batch: pcfich_decode "
+          f"{ms['pcfich']:.4f}, phich_decode {ms['phich']:.4f}, pdcch_blind_decode "
+          f"{ms['pdcch_blind_decode']:.4f}; viterbi.decode L={L} B={B}: {ms['viterbi_decode']:.4f} "
+          f"ms ({3 * L} add-compare-select steps) on {card}")
+    return ms
+
+
+def _lte_uplink_control(dev, gen, card: str) -> dict:
+    """Phase 11 (b): PUCCH 1a and 1b of 3 users on one PRB, PUCCH 2 with 4 and
+    13 CQI bits (B = 64, over _two_rx), LTE PRACH formats 0-3 (64 preambles,
+    a delay, 2 RX, B = 32) and SRS over 96 PRB (B = 8)."""
+    ms = {}
+    users = [lte_pucch.LtePucch1Config(n_rb=LTE_RB, cell_id=LTE_CELL, prb=1, n_oc=oc, cs0=cs,
+                                       n_rx=2) for oc, cs in ((0, 0), (1, 2), (2, 4))]
+    for n_bits, name in ((1, "1a"), (2, "1b")):
+        bits = [_bits(gen, (B_PUCCH_11, n_bits)) for _ in users]
+        grid = sum(lte_pucch.pucch1_tx(u, b) for u, b in zip(users, bits))
+        rx = _lte_air(grid, gen)
+
+        def rx_all():
+            return [lte_pucch.pucch1_rx(u, rx, n_bits) for u in users]
+
+        for u, b, out in zip(users, bits, rx_all()):
+            if not (torch.equal(out["bits"], b) and bool(out["detected"].all())):
+                raise AssertionError(f"LTE PUCCH {name} user n_oc={u.n_oc}: bits equal "
+                                     f"{torch.equal(out['bits'], b)}, detected "
+                                     f"{int(out['detected'].sum())}/{B_PUCCH_11}")
+        ms[f"pucch{name}_3users"] = _med_ms(rx_all)
+    for n_bits in (4, 13):
+        cfg = lte_pucch.LtePucch2Config(n_rb=LTE_RB, cell_id=LTE_CELL, prb=2, cs0=3,
+                                        n_bits=n_bits, n_rx=2)
+        bits = _bits(gen, (B_PUCCH_11, n_bits))
+        rx = _lte_air(lte_pucch.pucch2_tx(cfg, bits), gen)
+        out = lte_pucch.pucch2_rx(cfg, rx)
+        if not (torch.equal(out["uci"], bits) and bool(out["detected"].all())):
+            raise AssertionError(f"LTE PUCCH 2 {n_bits} bits: equal "
+                                 f"{torch.equal(out['uci'], bits)}, detected "
+                                 f"{int(out['detected'].sum())}/{B_PUCCH_11}")
+        ms[f"pucch2_{n_bits}bit"] = _med_ms(lambda: lte_pucch.pucch2_rx(cfg, rx))
+    print(f"LTE PUCCH {LTE_RB} PRB, 2 RX, B={B_PUCCH_11}: 1a and 1b of 3 users on PRB 1 (cover "
+          f"0/1/2), all bits and detections; format 2 with 4 and 13 CQI bits, all decoded; ms "
+          f"per batch: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" on {card}")
+
+    tau = 5                                      # delay in samples of the 839-point sequence
+    ramp = torch.exp(torch.tensor(-2j * math.pi * tau / 839, dtype=torch.complex64, device=dev)
+                     * torch.arange(839, device=dev))
+    w = torch.tensor([1.0, 0.6 + 0.3j], dtype=torch.complex64, device=dev)[:, None]
+    want_delay = tau * 1024 / 839
+    for fmt in range(4):
+        cfg = lte_prach.LtePrachConfig(format=fmt, root_sequence_index=22, n_roots=1)
+        if cfg.n_preambles != 64:
+            raise AssertionError(f"LTE PRACH format {fmt}: {cfg.n_preambles} preambles")
+        pre = torch.randint(0, 64, (B_PRACH_11,), generator=gen, device=dev)
+        rx = (lte_prach.prach_tx(cfg, pre) * ramp)[:, None] * w \
+            + 0.05 * _complex_normal(gen, (B_PRACH_11, 2, 839))
+        out = lte_prach.prach_rx(cfg, rx)
+        delay_err = float((out["delay"].float() - want_delay).abs().max())
+        if not (bool(out["detected"].all()) and torch.equal(out["preamble"], pre)
+                and delay_err <= PRACH_DELAY_TOL):
+            raise AssertionError(f"LTE PRACH format {fmt}: detected "
+                                 f"{int(out['detected'].sum())}/{B_PRACH_11}, preambles equal "
+                                 f"{torch.equal(out['preamble'], pre)}, delay error {delay_err}")
+        ms[f"prach_fmt{fmt}"] = _med_ms(lambda: lte_prach.prach_rx(cfg, rx))
+    print(f"LTE PRACH formats 0-3, 64 preambles (root 22, Ncs 13), delay {tau} samples "
+          f"({want_delay:.2f} at the 1024-point rate), 2 RX, B={B_PRACH_11}: every preamble found, "
+          f"every delay within {PRACH_DELAY_TOL} of it; prach_rx ms per batch " + ", ".join(
+              f"format {f} {ms[f'prach_fmt{f}']:.4f}" for f in range(4)) + f" on {card}")
+
+    cfg = lte_srs.LteSrsConfig(n_rb=LTE_RB, srs_rb=96, rb_start=2, cell_id=LTE_CELL,
+                               cyclic_shift=3, n_rx=2)
+    h = _two_rx_h(B, dev)
+    sigma2 = float((h[0, :, 0].abs() ** 2).mean()) / 10 ** (SRS_SNR_DB / 10)
+    y = h * lte_srs.srs_tx(cfg, B, dev)[:, None] \
+        + math.sqrt(sigma2 / 2) * _complex_normal(gen, (B, 2, 12 * LTE_RB))
+    out = lte_srs.srs_rx(cfg, y)
+    snr = out["snr_db"]
+    if not bool(((snr - SRS_SNR_DB).abs() < 1.0).all()):
+        raise AssertionError(f"LTE SRS: SNR {snr.tolist()} dB, set {SRS_SNR_DB}")
+    ms["srs_rx"] = _med_ms(lambda: lte_srs.srs_rx(cfg, y))
+    print(f"LTE SRS {cfg.srs_rb} PRB comb 2, 2 RX, B={B}: SNR {float(snr.min()):.2f}-"
+          f"{float(snr.max()):.2f} dB at a set {SRS_SNR_DB} dB; srs_rx {ms['srs_rx']:.4f} ms per "
+          f"batch on {card}")
+    return ms
+
+
+_LOOP_STAGES = ("pdsch_tx", "pdsch_rx", "pusch_tx", "pusch_rx", "crs_channel_estimate",
+                "pdcch_blind_decode", "pucch1_rx", "pucch2_rx")
+
+
+@contextlib.contextmanager
+def _loop_clock(marks: list, stages: dict):
+    """While the lte-softmodem loop runs, `marks` gets the host clock at its
+    start and at each of its log lines (the RRC line, then one per cycle),
+    and `stages` the seconds of each stage of _LOOP_STAGES within the cycles,
+    each call ended by a device synchronize."""
+    saved = {name: getattr(lte_softmodem, name) for name in ("run_loop", *_LOOP_STAGES)}
+
+    def run_loop(n_cycles=25, seed=0, log=print, device="cuda"):
+        def timed_log(line):
+            marks.append(time.perf_counter())
+            log(line)
+        marks.append(time.perf_counter())
+        return saved["run_loop"](n_cycles, seed, timed_log, device)
+
+    def timed(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kw)
+            torch.cuda.synchronize()
+            if len(marks) > 1:                  # after the RRC line: the cycles
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    lte_softmodem.run_loop = run_loop
+    for name in _LOOP_STAGES:
+        setattr(lte_softmodem, name, timed(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lte_softmodem, name, fn)
+
+
+def phase_slice11(dev, gen, card: str) -> None:
+    """Phase 11: the LTE control channels at 100 PRB, the nbiotsim case and
+    the lte-softmodem-loop case, none launching K1 or K3."""
+    t0 = time.perf_counter()
+    held = {}
+    _reset_counts()
+    _lte_downlink_control(dev, gen, card)
+    _lte_uplink_control(dev, gen, card)
+    c = _counts()
+    if any(c.values()):
+        raise AssertionError(f"phase 11 control channels launched {c}; they take neither K1 "
+                             f"nor K3")
+    _sim_cases((("nbiotsim", ()),), held, show_output=True)
+    marks, stages = [], {}
+    with _loop_clock(marks, stages):
+        r = _sim_cases((("lte-softmodem-loop", ()),), held, show_output=True)["lte-softmodem-loop"]
+    got = [line for line in r.output.splitlines() if line.startswith("[lte]")]
+    record = (pathlib.Path(__file__).resolve().parent / LTE_LOOP_RECORD).read_text().splitlines()
+    if got[:LTE_LOOP_CYCLES + 1] != record[9:10 + LTE_LOOP_CYCLES]:
+        raise AssertionError(f"lte-softmodem loop lines {got[:LTE_LOOP_CYCLES + 1]} differ from "
+                             f"{LTE_LOOP_RECORD}:10-{10 + LTE_LOOP_CYCLES}")
+    c = _counts()
+    if any(c.values()) or held:
+        raise AssertionError(f"phase 11 simulators launched {c}; they take neither K1 nor K3")
+    ends = marks[1: LTE_LOOP_CYCLES + 2]          # the RRC line, then each cycle's line
+    cycles = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+    per_cycle = sum(cycles) / len(cycles)
+    stage_ms = {k: 1e3 * v / len(cycles) for k, v in sorted(stages.items(), key=lambda kv: -kv[1])}
+    print(f"lte-softmodem loop, {LTE_LOOP_CYCLES} cycles: its RRC line and cycle lines equal "
+          f"{LTE_LOOP_RECORD}:10-{10 + LTE_LOOP_CYCLES}; RRC connect {1e3 * (marks[1] - marks[0]):.1f} "
+          f"ms (7 signalling TBs), {per_cycle:.1f} ms per cycle (host clock; cycles "
+          + ", ".join(f"{x:.1f}" for x in cycles) + "); per cycle by stage, each call ended by a "
+          f"synchronize: " + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + f", the rest {per_cycle - sum(stage_ms.values()):.1f} ms on {card}")
+    print(f"phase 11: LTE control channels, nbiotsim and the lte-softmodem loop without K1 or K3; "
+          f"{time.perf_counter() - t0:.1f} s")
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -1495,6 +1796,7 @@ def main() -> None:
     slice8 = phase_slice8(dev, gen, smi_line, main_path["slots_per_s"])
     slice9 = phase_slice9(dev, gen, smi_line, main_path["slots_per_s"])
     slice10 = phase_slice10(dev, gen, smi_line)
+    phase_slice11(dev, gen, smi_line)
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own

@@ -54,6 +54,14 @@ def _remainder_tensor(n_bits: int, name: str, device: torch.device) -> torch.Ten
                            dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def mask16(value: int, device: torch.device) -> torch.Tensor:
+    """(16,) int8 bits of `value`, MSB first: a CRC16 mask (an RNTI, an
+    antenna-count mask)."""
+    return torch.tensor([(value >> (15 - i)) & 1 for i in range(16)], dtype=torch.int8,
+                        device=device)
+
+
 def crc_compute(bits: torch.Tensor, name: str) -> torch.Tensor:
     """CRC parity bits for an MSB-first bit array.
 

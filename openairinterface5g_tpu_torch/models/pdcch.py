@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..coding import polar
-from ..coding.crc import crc_compute
+from ..coding.crc import crc_compute, mask16
 from ..phy import refsig
 from ..phy.channel_estimation import ls_estimate
 from ..phy.llr import llrs as llr_compute
@@ -120,17 +120,11 @@ def _params(cfg: DciConfig):
     return polar.polar_params(K=cfg.K, E=cfg.E, n_max=9, i_il=True)
 
 
-@functools.lru_cache(maxsize=8)
-def _rnti_bits(rnti: int, device: torch.device) -> torch.Tensor:
-    return torch.tensor([(rnti >> (15 - i)) & 1 for i in range(16)], dtype=torch.int8,
-                        device=device)
-
-
 def _dci_crc(payload: torch.Tensor, rnti: int) -> torch.Tensor:
     """CRC24C over (24 ones ++ payload), its last 16 bits XOR the RNTI."""
     ones = torch.ones((*payload.shape[:-1], 24), dtype=torch.int8, device=payload.device)
     crc = crc_compute(torch.cat([ones, payload.to(torch.int8)], dim=-1), "24C")
-    return torch.cat([crc[..., :8], crc[..., 8:] ^ _rnti_bits(rnti, payload.device)], dim=-1)
+    return torch.cat([crc[..., :8], crc[..., 8:] ^ mask16(rnti, payload.device)], dim=-1)
 
 
 def dci_encode(cfg: DciConfig, payload: torch.Tensor) -> torch.Tensor:

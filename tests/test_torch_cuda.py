@@ -758,3 +758,129 @@ def test_slot_models_on_the_card_match_cpu(cuda):
     _equal(o_c["uci0"][0]["uci"], o_g["uci0"][0]["uci"])
     _equal(o_c["uci2"][0]["uci"], o_g["uci2"][0]["uci"])
     _equal(o_c["rach_indication"][0]["preamble"], o_g["rach_indication"][0]["preamble"])
+
+
+# --------------------------------------------------------------------------
+# slice 11: the LTE control channels and NB-IoT on the card (plain PyTorch on
+# CUDA tensors) against the same code on the CPU
+# --------------------------------------------------------------------------
+
+def _crandn(rng, shape, scale=1.0):
+    return (scale * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            ).astype(np.complex64)
+
+
+def test_viterbi_on_the_card_matches_cpu(cuda):
+    """Encode and decode bit-equal on the card, the all-zero (all-tie) input,
+    integer LLRs (near-ties) and punctured LLRs included."""
+    from openairinterface5g_tpu_torch.coding import viterbi
+    rng = np.random.default_rng(21)
+    for L in (40, 43, 120):
+        bits = rng.integers(0, 2, (8, L)).astype(np.int8)
+        e_c, e_g = _both(viterbi.encode, bits, cuda=cuda)
+        _equal(e_c, e_g)
+        llr = (2.0 * (1.0 - 2.0 * e_c.numpy()) + 2.0 * rng.standard_normal(e_c.shape))
+        llr[0] = 0.0
+        llr[1] = np.round(llr[1])
+        llr[2, rng.random(3 * L) < 0.3] = 0.0
+        d_c, d_g = _both(viterbi.decode, llr.astype(np.float32), cuda=cuda)
+        _equal(d_c, d_g)
+        assert (d_c.numpy()[3:] == bits[3:]).mean() > 0.9
+
+
+def test_lte_control_on_the_card_matches_cpu(cuda):
+    """PBCH (1/2/4 ports), the PDCCH blind search (two RNTIs, a wrong one),
+    PUCCH 1a/1b/2, PRACH and SRS: decisions equal, metrics, d_hat and
+    estimates within the CPU tests' tolerances."""
+    from openairinterface5g_tpu_torch.lte import pbch, pdcch, prach, pucch, srs
+    rng = np.random.default_rng(22)
+    for ports in (1, 2, 4):
+        cfg = pbch.LtePbchConfig(n_rb=25, cell_id=17, n_tx_ports=ports, n_rx=2)
+        mib = rng.integers(0, 2, (3, 24)).astype(np.int8)
+        g_c, g_g = _both(lambda m: pbch.pbch_tx_grids(cfg, m), mib, cuda=cuda)
+        assert float((g_c - g_g.cpu()).abs().max()) <= 1e-6
+        h = _crandn(rng, (3, 2, 300))
+        rx = h[:, None, :, None, :] * g_c.numpy()[:, :, None] + _crandn(rng, (3, 4, 2, 14, 300), 0.1)
+        o_c, o_g = _both(lambda r, hh: pbch.pbch_rx_grids(cfg, r, hh), rx, h, cuda=cuda)
+        for a, b in zip(o_c, o_g):
+            _equal(a, b)
+        assert bool(o_c[1].all()) and (o_c[2] == ports).all()
+    A, n_rb, cell, sf = 27, 50, 7, 1
+    pays = [rng.integers(0, 2, (3, A)).astype(np.int8) for _ in range(2)]
+    y0 = sum(pdcch.pdcch_tx_symbol0(n_rb, cell, sf, torch.as_tensor(p), r, al, c0).numpy()
+             for p, r, al, c0 in ((pays[0], 0x5678, 2, 0), (pays[1], 0x1234, 4, 4)))
+    h = np.broadcast_to(_crandn(rng, (3, 1, 1)), (3, 1, 600)).copy()
+    y = h * y0[:, None] + _crandn(rng, (3, 1, 600), 0.1)
+    for rnti, sent in ((0x5678, pays[0]), (0x1234, pays[1]), (0x0BAD, None)):
+        o_c, o_g = _both(lambda a, b: pdcch.pdcch_blind_decode(a, b, n_rb, cell, sf, rnti, A),
+                         y, h, cuda=cuda)
+        for a, b in zip(o_c, o_g):
+            _equal(a, b)
+        assert bool(o_c[1].all()) == (sent is not None)
+    for n_bits, kw in ((1, dict(n_oc=1, cs0=2)), (2, dict(n_oc=2, cs0=5))):
+        cfg = pucch.LtePucch1Config(n_rb=25, cell_id=17, prb=3, n_rx=2, **kw)
+        bits = rng.integers(0, 2, (8, n_bits)).astype(np.int8)
+        grid = pucch.pucch1_tx(cfg, torch.as_tensor(bits)).numpy()
+        rx = _crandn(rng, (8, 2, 1, 1)) * grid[:, None] + _crandn(rng, (8, 2, 14, 300), 0.2)
+        o_c, o_g = _both(lambda r: pucch.pucch1_rx(cfg, r, n_bits), rx, cuda=cuda)
+        assert float((o_c["d_hat"] - o_g["d_hat"].cpu()).abs().max()) \
+            <= 1e-5 * float(o_c["d_hat"].abs().max())
+        _equal(o_c["bits"], o_g["bits"])
+        _equal(o_c["detected"], o_g["detected"])
+    for n_bits in (4, 13):
+        cfg = pucch.LtePucch2Config(n_rb=25, cell_id=17, prb=1, cs0=3, n_bits=n_bits)
+        bits = rng.integers(0, 2, (8, n_bits)).astype(np.int8)
+        rx = pucch.pucch2_tx(cfg, torch.as_tensor(bits)).numpy()[:, None] \
+            + _crandn(rng, (8, 1, 14, 300), 0.15)
+        o_c, o_g = _both(lambda r: pucch.pucch2_rx(cfg, r), rx, cuda=cuda)
+        _equal(o_c["uci"], o_g["uci"])
+        _equal(o_c["detected"], o_g["detected"])
+        assert torch.equal(o_c["uci"], torch.as_tensor(bits))
+    for fmt in range(4):
+        cfg = prach.LtePrachConfig(format=fmt, root_sequence_index=22 + 5 * fmt)
+        idx = rng.integers(0, cfg.n_preambles, 8)
+        tx = prach.prach_tx(cfg, torch.as_tensor(idx)).numpy()
+        rx = tx[:, None] + _crandn(rng, (8, 2, 839), 0.3)
+        o_c, o_g = _both(lambda r: prach.prach_rx(cfg, r), rx, cuda=cuda)
+        for k in ("detected", "preamble", "delay"):
+            _equal(o_c[k], o_g[k])
+        assert float((o_c["metric"] - o_g["metric"].cpu()).abs().max()) \
+            <= 1e-5 * float(o_c["metric"].abs().max())
+    cfg = srs.LteSrsConfig(n_rb=100, srs_rb=96, cell_id=7, cyclic_shift=3, n_rx=2)
+    y = _crandn(rng, (4, 2, 1)) * srs.srs_tx(cfg, 4).numpy()[:, None] + _crandn(rng, (4, 2, 1200), 0.05)
+    o_c, o_g = _both(lambda r: srs.srs_rx(cfg, r), y, cuda=cuda)
+    for k in ("h", "snr_db", "noise_var"):
+        assert float((o_c[k] - o_g[k].cpu()).abs().max()) <= 1e-5 * float(o_c[k].abs().max()), k
+
+
+def test_nbiot_on_the_card_matches_cpu(cuda, capsys):
+    """NSSS identification, NPBCH, NPDSCH, NPUSCH and NPRACH decide as on the
+    CPU, and the simulator prints the CPU run's lines."""
+    from openairinterface5g_tpu_torch.lte import nbiot
+    from openairinterface5g_tpu_torch.sim import nbiotsim
+    rng = np.random.default_rng(23)
+    g = nbiot.nsss_insert(torch.zeros((4, 14, 12), dtype=torch.complex64), 133, 0).numpy()
+    y = g + _crandn(rng, g.shape, 0.4)
+    (i_c, m_c), (i_g, m_g) = _both(lambda x: nbiot.nsss_identify(x, range(120, 150)), y, cuda=cuda)
+    _equal(i_c, i_g)
+    assert float((m_c - m_g.cpu()).abs().max()) <= 1e-5 * float(m_c.abs().max())
+    cfg = nbiot.NbConfig(n_id=133, n_reps=8)
+    t = nbiot.npbch_tx(cfg, torch.as_tensor(rng.integers(0, 2, (4, 34)).astype(np.int8))).numpy()
+    o_c, o_g = _both(lambda x: nbiot.npbch_rx(cfg, x), t + _crandn(rng, t.shape, 1.2), cuda=cuda)
+    _equal(o_c["mib_bits"], o_g["mib_bits"])
+    _equal(o_c["ok"], o_g["ok"])
+    for ul in (False, True):
+        c = nbiot.NbSchConfig(tbs=256, n_sf=2, n_reps=4, ul=ul)
+        t = nbiot.nbsch_tx(c, torch.as_tensor(rng.integers(0, 2, (4, 256)).astype(np.int8))).numpy()
+        o_c, o_g = _both(lambda x: nbiot.nbsch_rx(c, x), t + _crandn(rng, t.shape, 0.6), cuda=cuda)
+        _equal(o_c["tb_bits"], o_g["tb_bits"])
+        _equal(o_c["ok"], o_g["ok"])
+    pc = nbiot.NprachConfig()
+    t = nbiot.nprach_tx(pc, 5, batch=4).numpy()
+    o_c, o_g = _both(lambda x: nbiot.nprach_detect(pc, x), t + _crandn(rng, t.shape, 0.25), cuda=cuda)
+    _equal(o_c["n_init"], o_g["n_init"])
+    _equal(o_c["detected"], o_g["detected"])
+    assert nbiotsim.main(["-n", "8", "--device", "cpu"]) == 0
+    cpu = capsys.readouterr().out
+    assert nbiotsim.main(["-n", "8"]) == 0
+    assert capsys.readouterr().out == cpu

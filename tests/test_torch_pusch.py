@@ -164,7 +164,10 @@ def test_port_imports_no_jax():
             "          'sim.prachsim', 'phy.refsig', 'models.srs', 'models.prs', 'models.mu_mimo',\n"
             "          'models.gnb', 'models.ue', 'data.lte_tables', 'coding.turbo', 'lte.params',\n"
             "          'lte.refsig', 'lte.segmentation', 'lte.rate_matching', 'lte.pdsch',\n"
-            "          'lte.pusch', 'sim.lte_dlsim', 'sim.lte_ulsim'):\n"
+            "          'lte.pusch', 'sim.lte_dlsim', 'sim.lte_ulsim', 'coding.viterbi', 'lte.pbch',\n"
+            "          'lte.pdcch', 'lte.pucch', 'lte.srs', 'lte.prach', 'lte.nbiot', 'lte.mac',\n"
+            "          'lte.rrc', 'l3.per', 'runtime.lte_softmodem', 'sim.nbiotsim',\n"
+            "          'sim.lte_softmodem_sim'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
