@@ -55,6 +55,12 @@ Drives the port's paths with every hand-written CUDA kernel:
     (``lte/mac.py``, ``rrc.py``, ``l3/per.py``, ``runtime/lte_softmodem.py``):
     each control channel at 20 MHz, the nbiotsim and lte-softmodem-loop
     autotest cases.  This slice has no kernel: neither K1 nor K3 launches.
+  * slice 12, the NR runtime loops (``runtime/executor.py``, ``softmodem.py``,
+    ``ue_softmodem.py``, ``ra_ota.py``, ``connected_ota.py``,
+    ``ru_l1_split.py``) with their L2, FAPI, radio and fronthaul copies: the
+    gNB loop at 273 PRB through K3 and K1 on the executor's CUDA stream, RA
+    and connected mode as two OS processes over the rfsim hub the port
+    builds, the UE softmodem and the IF4p5 split, each through K3.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -159,6 +165,30 @@ Phases, one line or more each:
      ms of the RRC connect and per cycle by the host clock, split by stage
      (each stage's calls ended by a synchronize); none of (a)-(d) launches
      K1 or K3
+ 12. slice 12, the NR runtime loops on the card: (a) the nr-softmodem loop
+     (runtime/softmodem.py) at 273 PRB, 30 kHz: LOOP_ARGS (3 UEs x 91 PRB,
+     MCS 16, 20 dB, K1 via --backend kernel, K3), LOOP_SLOTS slots FDD and
+     with the TDD pattern LOOP_TDD (DDDDDDDSUU), each at executor depth 2
+     and 1: every UL TB must pass; the executor's report (per-slot latency
+     percentiles, deadline misses against 500 us x depth), slots/s, UL and
+     DL Mb/s, the K3/K1 launches (one each per UE and UL slot); the first UL
+     slot's K3 and K1 calls held against their plain versions (a run of
+     its own); a DL and an UL slot under torch.cuda.set_sync_debug_mode(
+     "warn"): every host sync, by the port's line that made it, in the
+     loop's setup, where the executor retires a slot, or inside a slot's
+     step, which fails the run (no decision is read there); (b) RA over the air
+     (runtime/ra_ota.py) as two OS processes over the hub built in _build/
+     (tools/ota_records.py): every [gnb] and [ue] line equal to
+     RA_OTA_RECORD's, the session's wall seconds and each endpoint's K3
+     launches; (c) connected mode (runtime/connected_ota.py --l2),
+     CONNECTED_CYCLES cycles, two processes: every [gnb] cycle line equal
+     to CONNECTED_L2_RECORD's first ones, every UL packet intact; ms per
+     cycle by stage in each process (each stage's calls ended by a
+     synchronize); (d) the UE softmodem (runtime/ue_softmodem.py) at its
+     48 PRB, UE_LOOP_SLOTS slots: "UE softmodem OK", its [sync] and [mib]
+     lines equal to the same numpy inputs' run on the CPU; (e) the IF4p5
+     RU/L1 split (runtime/ru_l1_split.py) at SPLIT_TRIALS trials, RU and
+     L1 in two threads on the card: the BLER gate passes
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -170,8 +200,11 @@ f32 and K3 also carry launches_simulators, their launches in phase 7, and
 held_simulators and max_abs_err_simulators, the calls held against plain
 there and the largest error, and the same for phase 8 under launches_phase8,
 held_phase8 and max_abs_err_phase8, for phase 9 under launches_phase9,
-held_phase9 and max_abs_err_phase9, and for phase 10 under
-launches_phase10, held_phase10 and max_abs_err_phase10.
+held_phase9 and max_abs_err_phase9, for phase 10 under
+launches_phase10, held_phase10 and max_abs_err_phase10, and for phase 12
+under launches_phase12 (summed over (a)'s timed runs and (b)-(e), the OTA
+endpoints' counted in their processes), held_phase12 and
+max_abs_err_phase12.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -180,6 +213,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import pathlib
@@ -206,10 +240,12 @@ from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
 from openairinterface5g_tpu_torch.phy import ofdm
 from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
-from openairinterface5g_tpu_torch.runtime import lte_softmodem
+from openairinterface5g_tpu_torch.runtime import (lte_softmodem, ru_l1_split, softmodem,
+                                                  ue_softmodem)
 from openairinterface5g_tpu_torch.sim import autotest, dlsim, prachsim, pucchsim, ulsim
 from openairinterface5g_tpu_torch.sim.channel import _complex_normal, add_noise, flat_gain
-from openairinterface5g_tpu_torch.tools import bench_frontend, bench_launch, bench_ldpc_layered
+from openairinterface5g_tpu_torch.tools import (bench_frontend, bench_launch, bench_ldpc_layered,
+                                                ota_records)
 
 SEED = 1234
 B = bench_launch.MAIN_PATH_B            # slots per batch
@@ -1772,6 +1808,233 @@ def phase_slice11(dev, gen, card: str) -> None:
     print(f"phase 11: LTE control channels, nbiotsim and the lte-softmodem loop without K1 or K3; "
           f"{time.perf_counter() - t0:.1f} s")
 
+# ---- phase 12: the NR runtime loops ----
+
+LOOP_ARGS = ["-u", "3", "-P", "91", "-m", "16", "-s", "20", "-I", "8", "--backend", "kernel"]
+LOOP_SLOTS = 40
+LOOP_TDD = "7,6,2,4"          # DDDDDDDSUU: OAI's default 5 ms pattern
+RA_RECORD = "RA_OTA_r4.txt"                      # the JAX package's recorded runs
+CONNECTED_L2_RECORD = "CONNECTED_OTA_L2_r5.txt"
+CONNECTED_CYCLES = 8
+UE_LOOP_SLOTS = 8
+SPLIT_TRIALS = 32
+OTA_PORTS = (48601, 48602)    # RA, connected mode
+SPLIT_PORTS = (48611, 48612)  # RU, L1
+
+
+def _record(name: str, prefix: str) -> list:
+    text = (pathlib.Path(__file__).resolve().parent / name).read_text()
+    return [line for line in text.splitlines() if line.startswith(prefix)]
+
+
+def _syncs_of_two_slots(args) -> list:
+    """A DL and an UL slot of the loop (the TDD pattern D, U; a run before it
+    builds the configurations' constants) under
+    torch.cuda.set_sync_debug_mode("warn"): each host sync as (where, the
+    port's innermost line, count); where is "step" inside a slot's step_fn,
+    "retire" where the executor moves a result to the host, "setup" where
+    the loop builds its inputs."""
+    import traceback
+    import warnings
+    found = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        names = {(pathlib.Path(f.filename).name, f.name) for f in stack}
+        where = ("retire" if ("executor.py", "_retire") in names
+                 else "step" if ("executor.py", "run") in names else "setup")
+        ours = [f for f in stack if "openairinterface5g_tpu_torch" in f.filename]
+        site = ours[-1] if ours else [f for f in stack if "warnings" not in f.filename][-1]
+        key = (where, f"{pathlib.Path(site.filename).name}:{site.lineno} {site.name}: "
+                      f"{(site.line or '').strip()}")
+        found[key] = found.get(key, 0) + 1
+
+    two = softmodem.parse_args(args + ["-n", "2", "--tdd", "1,0,1,0,1"])
+    softmodem.run(two, log=lambda *a: None)     # each configuration's constants built
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            softmodem.run(two, log=lambda *a: None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [(w, site, n) for (w, site), n in sorted(found.items())]
+
+
+def _gnb_loop(held: dict, card: str) -> dict:
+    """Phase 12 (a): the nr-softmodem loop at 273 PRB through K3 and K1."""
+    lines = []
+    with _held_to_plain("phase 12 gNB loop, first UL slot", held, lines, limit=3):
+        r = softmodem.run(softmodem.parse_args(LOOP_ARGS + ["-n", "1"]), log=lambda *a: None)
+        torch.cuda.synchronize()
+    if r["ul_ok"] != [[True] * 3] or held.get("pusch_frontend", (0,))[0] != 3 \
+            or held.get("layered_f32", (0,))[0] != 3:
+        raise AssertionError(f"phase 12 held slot: TB ok {r['ul_ok']}, held {held}")
+    for line in lines:
+        print(f"  {line}")
+    syncs = _syncs_of_two_slots(LOOP_ARGS)
+    print(f"gNB loop, host syncs of a DL and an UL slot (set_sync_debug_mode warn): "
+          f"{len(syncs)} sites")
+    for where, site, n in syncs:
+        print(f"  [{where}] x{n} {site}")
+    if any(where == "step" for where, _, _ in syncs):
+        raise AssertionError("a slot's step waits for the device: the executor's pipeline "
+                             "is gone")
+    launches = {"layered_f32": 0, "pusch_frontend": 0}
+    for tdd_spec in (None, LOOP_TDD):
+        for depth in (2, 1):
+            argv = LOOP_ARGS + ["-n", str(LOOP_SLOTS), "--depth", str(depth)] \
+                + (["--tdd", tdd_spec] if tdd_spec else [])
+            head = []
+            _reset_counts()
+            r = softmodem.run(softmodem.parse_args(argv), log=head.append)
+            torch.cuda.synchronize()
+            c = _counts()
+            kinds = r["kinds"]
+            n_ul, n_dl = kinds.count("U"), kinds.count("D")
+            oks = [ok for row in r["ul_ok"] if row is not None for ok in row]
+            if not all(oks) or len(oks) != 3 * n_ul:
+                raise AssertionError(f"gNB loop {argv}: UL TB ok {r['ul_ok']}")
+            if c["pusch_frontend"] != 3 * n_ul or c["layered_f32"] != 3 * n_ul:
+                raise AssertionError(f"gNB loop {argv}: launches {c}, want K3 and K1 "
+                                     f"{3 * n_ul} each (one per UE and UL slot)")
+            for k in launches:
+                launches[k] += c[k]
+            wall = r["wall"]
+            p = r["executor"].percentiles()
+            ul_mbps = len(oks) * r["tbs"] / wall / 1e6
+            dl_mbps = n_dl * 3 * r["dl_tbs"] / wall / 1e6
+            print(f"{head[0]}, depth {depth}: {r['executor'].report()}")
+            print(f"  slots/s {LOOP_SLOTS / wall:.1f} [{n_dl} DL / {kinds.count('S')} S / "
+                  f"{n_ul} UL], UL TB ok {len(oks)}/{len(oks)}, UL {ul_mbps:.1f} Mb/s, DL TX "
+                  f"{dl_mbps:.1f} Mb/s, p50/p90/p99 {p['p50_us']:.0f}/{p['p90_us']:.0f}/"
+                  f"{p['p99_us']:.0f} us, mean dispatch "
+                  f"{statistics.mean(s.dispatch_us for s in r['executor'].stats):.0f} us; "
+                  f"launches {c} on {card}")
+    return launches
+
+
+def _ota_sessions(card: str) -> dict:
+    """Phase 12 (b) and (c): RA and connected mode as two OS processes each."""
+    launches = {"layered_f32": 0, "pusch_frontend": 0}
+    ra = ota_records.session("ra", OTA_PORTS[0], timeout_s=600)
+    for role in ("gnb", "ue"):
+        if ra[role]["result"] is not True:
+            raise AssertionError(f"RA over the air: {role} returned {ra[role]['result']}")
+        if ra[role]["lines"] != _record(RA_RECORD, f"[{role}]"):
+            raise AssertionError(f"RA over the air: [{role}] lines {ra[role]['lines']} differ "
+                                 f"from {RA_RECORD}")
+    for role in ("gnb", "ue"):
+        for k in launches:
+            launches[k] += ra[role]["launches"][k]
+    if not (ra["gnb"]["launches"]["pusch_frontend"] and ra["ue"]["launches"]["pusch_frontend"]):
+        raise AssertionError(f"RA over the air launched no K3 in an endpoint: "
+                             f"{ra['gnb']['launches']}, {ra['ue']['launches']}")
+    print(f"RA over the air, two processes over the hub: every [gnb] and [ue] line equals "
+          f"{RA_RECORD}'s; session {ra['wall_s']:.1f} s (UE start to last exit), endpoints "
+          f"{ra['gnb']['wall_s']:.1f} / {ra['ue']['wall_s']:.1f} s; K3 launches gNB "
+          f"{ra['gnb']['launches']['pusch_frontend']}, UE {ra['ue']['launches']['pusch_frontend']}"
+          f" on {card}")
+    co = ota_records.session("connected", OTA_PORTS[1], CONNECTED_CYCLES, l2=True, timeout_s=900)
+    got = [x for x in co["gnb"]["lines"] if x.startswith("[gnb] cyc")]
+    want = _record(CONNECTED_L2_RECORD, "[gnb] cyc")
+    if len(got) < CONNECTED_CYCLES or got != want[: len(got)]:
+        raise AssertionError(f"connected mode --l2: [gnb] lines {got} differ from "
+                             f"{CONNECTED_L2_RECORD}'s {want[: len(got)]}")
+    st = co["gnb"]["result"]
+    if not (st["ul_pkts"] > 0 and st["ul_pkts_intact"] == st["ul_pkts"]
+            and co["ue"]["result"].get("dl_pkts", 0) > 0):
+        raise AssertionError(f"connected mode --l2: packets {st}, UE {co['ue']['result']}")
+    for role in ("gnb", "ue"):
+        for k in launches:
+            launches[k] += co[role]["launches"][k]
+    per = {role: {k: 1e3 * v / CONNECTED_CYCLES for k, v in co[role]["stages_s"].items()}
+           for role in ("gnb", "ue")}
+    print(f"connected mode --l2, {CONNECTED_CYCLES} cycles, two processes: every [gnb] cycle "
+          f"line equals {CONNECTED_L2_RECORD}'s; DL {st['dl_ack']}/{st['dl_tx']} acked, UL "
+          f"{st['ul_ok']}/{st['ul_rx']} ok, {st['dl_retx']}+{st['ul_retx']} retx, UL packets "
+          f"{st['ul_pkts_intact']}/{st['ul_pkts']} intact; session {co['wall_s']:.1f} s, "
+          f"{1e3 * co['gnb']['wall_s'] / CONNECTED_CYCLES:.1f} ms per cycle (gNB process); "
+          f"launches gNB {co['gnb']['launches']}, UE {co['ue']['launches']} on {card}")
+    for role in ("gnb", "ue"):
+        print(f"  {role} ms per cycle by stage (each call ended by a synchronize): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per[role].items()))
+    return {"launches": launches, "ra_s": ra["wall_s"], "connected_ms_per_cycle": per}
+
+
+def _ue_loop(card: str) -> dict:
+    """Phase 12 (d): the UE softmodem at its own 48 PRB."""
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = ue_softmodem.main(argv)
+        return rc, buf.getvalue().splitlines()
+
+    _reset_counts()
+    rc, got = run(["-n", str(UE_LOOP_SLOTS)])
+    torch.cuda.synchronize()
+    c = _counts()
+    _, cpu = run(["-n", "1", "--device", "cpu"])
+    strip = lambda line: line.rsplit(" (", 1)[0]   # noqa: E731  [sync]'s seconds
+    if rc != 0 or got[-1] != "UE softmodem OK" or \
+            f"[data] {UE_LOOP_SLOTS}/{UE_LOOP_SLOTS} slots" not in got[2]:
+        raise AssertionError(f"UE softmodem: rc {rc}, {got}")
+    if [strip(got[0]), got[1]] != [strip(cpu[0]), cpu[1]]:
+        raise AssertionError(f"UE softmodem: [sync]/[mib] {got[:2]} differ from the CPU's {cpu[:2]}")
+    if c["pusch_frontend"] != UE_LOOP_SLOTS:
+        raise AssertionError(f"UE softmodem: launches {c}, want K3 once a slot")
+    print(f"UE softmodem 48 PRB, {UE_LOOP_SLOTS} slots: {got[0]}; [mib] and [sync] equal the "
+          f"CPU run's; {got[2]}; launches {c} on {card}")
+    return c
+
+
+def _split(card: str) -> dict:
+    """Phase 12 (e): the IF4p5 RU/L1 split, RU and L1 in two threads."""
+    import threading
+    lines, res = [], {}
+    kw = dict(ru_port=SPLIT_PORTS[0], l1_port=SPLIT_PORTS[1])
+    _reset_counts()
+    t0 = time.perf_counter()
+    t = threading.Thread(target=lambda: res.__setitem__(
+        "l1", ru_l1_split.run_l1(SPLIT_TRIALS, log=lines.append, **kw)), daemon=True)
+    t.start()
+    want = f"0100007F:{SPLIT_PORTS[1]:04X}"       # the L1's socket bound (/proc/net/udp)
+    for _ in range(400):
+        if any(row.split()[1] == want
+               for row in pathlib.Path("/proc/net/udp").read_text().splitlines()[1:]):
+            break
+        time.sleep(0.05)
+    ru_l1_split.run_ru(SPLIT_TRIALS, log=lines.append, **kw)
+    t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    if res.get("l1") is not True or c["pusch_frontend"] == 0:
+        raise AssertionError(f"IF4p5 split: L1 returned {res.get('l1')}, launches {c}: {lines}")
+    print(f"IF4p5 RU/L1 split, {SPLIT_TRIALS} trials, 106 PRB MCS 9 at 5 dB: "
+          + "; ".join(x for x in lines if x.startswith("[l1] UL") or x.startswith("[l1] DL"))
+          + f"; {lines[-1]}; {wall:.1f} s; launches {c} on {card}")
+    return c
+
+
+def phase_slice12(dev, gen, card: str) -> dict:
+    """Phase 12: the NR runtime loops, (a)-(e)."""
+    t0 = time.perf_counter()
+    held = {}
+    launches = _gnb_loop(held, card)
+    ota = _ota_sessions(card)
+    for c in (ota["launches"], _ue_loop(card), _split(card)):
+        for k in launches:
+            launches[k] += c[k]
+    print(f"phase 12: the NR runtime loops, launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "held": {k: held.get(k, (0, 0.0)) for k in launches}}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -1797,6 +2060,7 @@ def main() -> None:
     slice9 = phase_slice9(dev, gen, smi_line, main_path["slots_per_s"])
     slice10 = phase_slice10(dev, gen, smi_line)
     phase_slice11(dev, gen, smi_line)
+    slice12 = phase_slice12(dev, gen, smi_line)
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -1816,6 +2080,9 @@ def main() -> None:
                               launches_phase10=slice10["launches"][name],
                               held_phase10=slice10["held"][name][0],
                               max_abs_err_phase10=slice10["held"][name][1],
+                              launches_phase12=slice12["launches"][name],
+                              held_phase12=slice12["held"][name][0],
+                              max_abs_err_phase12=slice12["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

@@ -301,6 +301,8 @@ class _Consts(NamedTuple):
     ptrs_syms: torch.Tensor      # (n_p,) long: the data symbols carrying PTRS
     ptrs_sc: torch.Tensor        # (K,) long: PTRS subcarriers in the allocation
     ptrs_pilots: torch.Tensor    # (n_p, K) complex64: each PTRS symbol's pilots
+    data_syms: torch.Tensor      # (n_data,) long: cfg.data_symbols
+    dmrs_syms: torch.Tensor      # (n_dmrs,) long: cfg.dmrs_symbols
 
 
 @functools.lru_cache(maxsize=64)
@@ -327,7 +329,8 @@ def _consts(cfg: PuschConfig, device: torch.device) -> _Consts:
         re_sym=on(sym_ids, torch.long), re_sc=on(sc_ids, torch.long),
         re_pos=on(sym_ids - cfg.start_symbol, torch.long),
         ptrs_syms=on(p_syms, torch.long), ptrs_sc=on(psc, torch.long),
-        ptrs_pilots=on(p_pil))
+        ptrs_pilots=on(p_pil), data_syms=on(cfg.data_symbols, torch.long),
+        dmrs_syms=on(cfg.dmrs_symbols, torch.long))
 
 
 # --------------------------------------------------------------------------
@@ -367,9 +370,11 @@ def pusch_tx_grid(cfg: PuschConfig, tb_bits: torch.Tensor, rv: int = 0, uci_cfg=
     grid_re = torch.zeros((B, cfg.n_layers, fp.symbols_per_slot, fp.n_sc),
                           dtype=torch.complex64, device=dev)
     if not cfg.uses_re_map:
-        grid_re[:, :, list(cfg.data_symbols), a0: a0 + M] = layers.reshape(
+        # symbol indices from the device (a host list would be copied over,
+        # and wait for the device, on every call)
+        grid_re[:, :, k.data_syms, a0: a0 + M] = layers.reshape(
             B, cfg.n_layers, len(cfg.data_symbols), M)
-        grid_re[:, :, list(cfg.dmrs_symbols), a0: a0 + M] = k.dmrs_rows
+        grid_re[:, :, k.dmrs_syms, a0: a0 + M] = k.dmrs_rows
         return grid_re, scrambled
     # RE map: data in (symbol, subcarrier) order, then the PTRS pilots on
     # layer 0, then each layer's DMRS comb (written last, as in the JAX model)

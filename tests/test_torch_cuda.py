@@ -884,3 +884,60 @@ def test_nbiot_on_the_card_matches_cpu(cuda, capsys):
     cpu = capsys.readouterr().out
     assert nbiotsim.main(["-n", "8"]) == 0
     assert capsys.readouterr().out == cpu
+
+
+def test_executor_at_depth_2_on_the_card(cuda):
+    """The slot executor on its own CUDA stream: results in order, on the
+    host, and every slot's enqueue shorter than its completion."""
+    from openairinterface5g_tpu_torch.runtime import executor
+
+    def step(i, x):
+        for _ in range(20):
+            x = x @ x / 512
+        return {"i": i, "v": x.sum()}
+    xs = [(torch.full((512, 512), 1.0 / 512, device=cuda) * (1 + i / 8),) for i in range(8)]
+    ex = executor.SlotExecutor(step, depth=2, slot_duration_s=500e-6, device=cuda)
+    got = ex.run(xs)
+    assert [r["i"] for r in got] == list(range(8))
+    assert all(r["v"].device.type == "cpu" for r in got)
+    want = [step(i, *x)["v"].cpu() for i, x in enumerate(xs)]
+    for r, w in zip(got, want):
+        assert torch.allclose(r["v"], w, rtol=1e-5)
+    assert len(ex.stats) == 8 and all(s.dispatch_us < s.complete_us for s in ex.stats)
+
+
+def test_softmodem_on_the_card_matches_cpu(cuda):
+    """The softmodem at tests/test_runtime.py's loop arguments through K1
+    (--backend kernel) and K3: the CPU run's UL TB ok list."""
+    from openairinterface5g_tpu_torch.ops import ldpc_decoder
+    from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
+    from openairinterface5g_tpu_torch.runtime import softmodem
+    argv = ["-n", "4", "-u", "1", "-P", "6", "-m", "4", "-s", "16", "-I", "6",
+            "--backend", "kernel"]
+    cpu = softmodem.run(softmodem.parse_args(argv + ["--device", "cpu"]), log=lambda *a: None)
+    k1, k3 = ldpc_decoder.launches["layered_f32"], fe.launches
+    card = softmodem.run(softmodem.parse_args(argv), log=lambda *a: None)
+    assert card["ul_ok"] == cpu["ul_ok"] == [[True]] * 4
+    assert ldpc_decoder.launches["layered_f32"] - k1 == 4 and fe.launches - k3 == 4
+
+
+def test_ra_over_the_air_on_the_card(cuda):
+    """gNB and UE on one card, each on a stream of its own: the JAX run's
+    recorded lines (RA_OTA_r4.txt)."""
+    import pathlib
+    import threading
+
+    from openairinterface5g_tpu_torch.ops import _cuda
+    from openairinterface5g_tpu_torch.runtime import ra_ota
+    _cuda.route()                       # build the kernels before the threads start
+    lines, res = [], {}
+    t = threading.Thread(target=lambda: res.__setitem__(
+        "gnb", ra_ota.run_gnb(48751, log=lines.append)), daemon=True)
+    t.start()
+    res["ue"] = ra_ota.run_ue(48751, log=lines.append)
+    t.join(timeout=300)
+    assert res == {"gnb": True, "ue": True}
+    record = (pathlib.Path(__file__).resolve().parents[1] / "RA_OTA_r4.txt").read_text()
+    for role in ("[gnb]", "[ue]"):
+        assert [x for x in lines if x.startswith(role)] == \
+            [x for x in record.splitlines() if x.startswith(role)]

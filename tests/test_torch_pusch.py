@@ -167,7 +167,12 @@ def test_port_imports_no_jax():
             "          'lte.pusch', 'sim.lte_dlsim', 'sim.lte_ulsim', 'coding.viterbi', 'lte.pbch',\n"
             "          'lte.pdcch', 'lte.pucch', 'lte.srs', 'lte.prach', 'lte.nbiot', 'lte.mac',\n"
             "          'lte.rrc', 'l3.per', 'runtime.lte_softmodem', 'sim.nbiotsim',\n"
-            "          'sim.lte_softmodem_sim'):\n"
+            "          'sim.lte_softmodem_sim', 'runtime.tdd', 'runtime.scheduler',\n"
+            "          'runtime.executor', 'runtime.softmodem', 'fapi.messages', 'fapi.transport',\n"
+            "          'l2.mac', 'radio.rfsim', 'radio.iqplayer', 'fapi.ue_if', 'runtime.ue_softmodem',\n"
+            "          'l2.ue_mac', 'runtime.ra_ota', 'l2.security', 'l2.pdcp', 'l2.rlc', 'l2.sdap',\n"
+            "          'l2.userplane', 'runtime.connected_ota', 'fronthaul.if4p5',\n"
+            "          'runtime.ru_l1_split'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
