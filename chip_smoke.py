@@ -61,6 +61,11 @@ Drives the port's paths with every hand-written CUDA kernel:
     gNB loop at 273 PRB through K3 and K1 on the executor's CUDA stream, RA
     and connected mode as two OS processes over the rfsim hub the port
     builds, the UE softmodem and the IF4p5 split, each through K3.
+  * slice 13, the rest of the NR stack (``l3/``: RRC, NAS, NGAP, GTP-U,
+    F1AP, E1AP, SCTP, E2AP, XnAP, X2AP; ``fronthaul/if5.py``, ``oran.py``;
+    ``utils/``): the 5G SA call flow with msg3 through K3 and K1, and the
+    IF5 and O-RAN 7.2 splits carrying the main path's 273-PRB slot into K3
+    and K1, with ``utils/profiling.py`` timing and tracing them.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -189,6 +194,28 @@ Phases, one line or more each:
      lines equal to the same numpy inputs' run on the CPU; (e) the IF4p5
      RU/L1 split (runtime/ru_l1_split.py) at SPLIT_TRIALS trials, RU and
      L1 in two threads on the card: the BLER gate passes
+ 13. slice 13, the rest of the NR stack on the card: (a) the SA call flow of
+     tests/test_e2e_callflow.py with the port's modules (l3/, l2/, fapi/):
+     PRACH detected, msg3 (an RRCSetupRequest in a PUSCH TB, MSG3_PUSCH, 12
+     iterations) through K3 and K1 (one launch each), then RRC setup, NAS
+     registration and the PDU session through NGAP, security, PDCP
+     (NEA2/NIA2) over RLC UM and GTP-U on the host: the detection, the TB
+     bits and every PDU equal to a CPU run of the same flow (os.urandom
+     pinned for both), twice (the second run's stages timed); (b) IF5
+     (fronthaul/if5.py) at FH_PUSCH (the main path's 273 PRB 2x2 MCS 16, B =
+     1, 8 iterations) over the bench's channel: 60 datagrams a slot, equal to the CPU packer's, shuffled by a
+     seeded generator, the waveform rebuilt within IF5_TOL of max|rx|,
+     pusch_rx through K3 and K1; (c) the O-RAN 7.2 U-plane
+     (fronthaul/oran.py) on the same slot's grid: 140 packets of at most
+     FH_MAX_PRB PRBs (pcid = antenna), equal to the CPU packer's, the grid
+     rebuilt within ORAN_TOL, pusch_rx_grid through K3 and K1; for (b) and
+     (c): ms to pack, rebuild and decode, bytes and host copies a slot (one
+     each way: the synchronizing operations set_sync_debug_mode("warn")
+     reports from fronthaul/); (d) a profile_to
+     (utils/profiling.py) capture of (b)'s receive: its Chrome trace holds
+     the trace() spans and the rows of K3 and K1; the first K3 and K1 call
+     of (a), (b) and (c) held against the plain versions; the stages'
+     MeasGroup report
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -204,7 +231,8 @@ held_phase9 and max_abs_err_phase9, for phase 10 under
 launches_phase10, held_phase10 and max_abs_err_phase10, and for phase 12
 under launches_phase12 (summed over (a)'s timed runs and (b)-(e), the OTA
 endpoints' counted in their processes), held_phase12 and
-max_abs_err_phase12.
+max_abs_err_phase12, and for phase 13 under launches_phase13, held_phase13
+and max_abs_err_phase13.
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -216,16 +244,25 @@ import dataclasses
 import io
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from openairinterface5g_tpu_torch.coding import ldpc, rate_matching, turbo
 from openairinterface5g_tpu_torch.coding import viterbi as lte_viterbi
 from openairinterface5g_tpu_torch.config import make_frame_params
+from openairinterface5g_tpu_torch.fapi.messages import RachIndication
+from openairinterface5g_tpu_torch.fronthaul import if5, oran
+from openairinterface5g_tpu_torch.l2.mac import MacScheduler, SchedulerConfig
+from openairinterface5g_tpu_torch.l2.pdcp import DIR_DL, DIR_UL, PdcpConfig, PdcpEntity
+from openairinterface5g_tpu_torch.l2.rlc import RlcUm
+from openairinterface5g_tpu_torch.l2.ue_mac import UeMac
+from openairinterface5g_tpu_torch.l3 import gtpu, nas, ngap, rrc
 from openairinterface5g_tpu_torch.lte import params as lte_params
 from openairinterface5g_tpu_torch.lte import pbch as lte_pbch
 from openairinterface5g_tpu_torch.lte import pdcch as lte_pdcch
@@ -246,6 +283,7 @@ from openairinterface5g_tpu_torch.sim import autotest, dlsim, prachsim, pucchsim
 from openairinterface5g_tpu_torch.sim.channel import _complex_normal, add_noise, flat_gain
 from openairinterface5g_tpu_torch.tools import (bench_frontend, bench_launch, bench_ldpc_layered,
                                                 ota_records)
+from openairinterface5g_tpu_torch.utils import profiling
 
 SEED = 1234
 B = bench_launch.MAIN_PATH_B            # slots per batch
@@ -2035,6 +2073,323 @@ def phase_slice12(dev, gen, card: str) -> dict:
     return {"launches": launches, "held": {k: held.get(k, (0, 0.0)) for k in launches}}
 
 
+# ---- phase 13: the rest of the NR stack ----
+
+MSG3_PUSCH = dict(mu=1, n_prb=6, mcs=4, n_layers=1, n_rx=1, rnti=0x4601,
+                  decoder_backend="kernel")
+MSG3_ITERS = 12
+FH_PUSCH = dict(mu=1, n_prb=273, mcs=16, n_layers=2, n_rx=2, decoder_backend="kernel")
+FH_ITERS = 8
+FH_TIMED = 5              # calls behind each fronthaul stage's MeasGroup figure
+FH_MAX_PRB = 64           # PRBs per O-RAN U-plane packet: 5 packets a 273-PRB symbol
+IF5_TOL = 2e-3            # JAX's bounds of max|rx| and max|grid| (tests/test_ru_l1_split.py)
+ORAN_TOL = 5e-3
+PROFILE_DIR = _cuda.BUILD_DIR / "phase13_profile"
+
+
+@contextlib.contextmanager
+def _pinned_urandom():
+    """os.urandom as a counter (the RRCSetupRequest's ue_identity draws it),
+    so two runs of the call flow send the same PDUs."""
+    real, state = os.urandom, {"n": 0}
+
+    def urandom(n):
+        state["n"] += 1
+        return bytes((state["n"] * 37 + i) & 0xFF for i in range(n))
+    os.urandom = urandom
+    try:
+        yield
+    finally:
+        os.urandom = real
+
+
+def _sa_call_flow(dev, meas: profiling.MeasGroup) -> dict:
+    """tests/test_e2e_callflow.py's SA call flow with the port's modules:
+    PRACH and msg3 (an RRCSetupRequest in a PUSCH TB; K3 and K1 on the card)
+    on `dev` with the test's numpy draws, then RRC setup, NAS registration and
+    the PDU session through NGAP, security, PDCP (NEA2/NIA2) over RLC UM and
+    GTP-U to the UPF stub on the host.  Returns the PRACH detection, the msg3
+    TB bits and every PDU the flow sent."""
+    rng = np.random.default_rng(0)
+    wire = []
+
+    def tap(tag, fn):
+        def send(*args):
+            wire.append((tag, *args))
+            return fn(*args)
+        return send
+
+    def fail(what):
+        raise AssertionError(f"SA call flow on {dev}: {what}")
+
+    ue_mac = UeMac()
+    ra_req = ue_mac.start_ra(slot=0, msg3_payload=b"")
+    pcfg = prach.PrachConfig()
+    with meas.measure("callflow prach"):
+        tx_p = prach.prach_tx(pcfg, torch.tensor([ra_req["preamble_index"]], device=dev))
+        shape = tuple(tx_p.shape)
+        noise = 0.05 * (rng.normal(size=shape) + 1j * rng.normal(size=shape))
+        det = prach.prach_rx(pcfg, (tx_p + torch.as_tensor(noise.astype(np.complex64),
+                                                            device=dev))[:, None, :])
+        detected, preamble = bool(det["detected"][0]), int(det["preamble"][0])
+        delay = int(det["delay"][0])
+    if not detected or preamble != ra_req["preamble_index"]:
+        fail(f"PRACH detected {detected}, preamble {preamble} of {ra_req['preamble_index']}")
+    gnb_mac = MacScheduler(SchedulerConfig())
+    gnb_mac.on_rach(RachIndication(sfn=0, slot=1, preambles=((preamble, delay, 0),)))
+    msg3 = ue_mac.on_rar(5, {"preamble_index": preamble, "tc_rnti": MSG3_PUSCH["rnti"],
+                             "ul_grant": 64})
+    if not gnb_mac.ra_queue or msg3 is None or msg3["rnti"] != MSG3_PUSCH["rnti"]:
+        fail(f"RAR: msg3 {msg3}")
+
+    rnti = MSG3_PUSCH["rnti"]
+    ue_rrc, gnb_rrc = rrc.UeRrc(), rrc.GnbRrc(cell_id=1)
+    ul_pdus, dl_pdus = [], []
+    ue_rrc.send_ul = tap("rrc ul", lambda srb, pdu: ul_pdus.append(pdu))
+    gnb_rrc.send_dl = tap("rrc dl", lambda r, srb, pdu: dl_pdus.append(pdu))
+    ue_rrc.connect(nas_pdu=b"")
+    rrc_pdu = ul_pdus.pop(0)
+    ue_mac.msg3_payload = rrc_pdu
+    cfg = pusch.PuschConfig(**MSG3_PUSCH)
+    payload = np.frombuffer(len(rrc_pdu).to_bytes(2, "big") + rrc_pdu, np.uint8)
+    tb = np.zeros((1, cfg.tbs), np.int8)
+    bits = np.unpackbits(payload)[: cfg.tbs]
+    tb[0, : len(bits)] = bits
+    with meas.measure("callflow msg3 pusch_tx") as box:
+        tx_u = pusch.pusch_tx(cfg, torch.as_tensor(tb, device=dev))[0]
+        box["sync"] = tx_u
+    n = tx_u.shape[-1]
+    noise_u = 0.02 * (rng.normal(size=(1, 1, n)) + 1j * rng.normal(size=(1, 1, n)))
+    with meas.measure("callflow msg3 pusch_rx") as box:
+        out = pusch.pusch_rx(cfg, tx_u + torch.as_tensor(noise_u.astype(np.complex64),
+                                                         device=dev), n_iters=MSG3_ITERS)
+        box["sync"] = out["tb_bits"]
+    tb_bits = out["tb_bits"].cpu().numpy()
+    if not bool(out["tb_ok"][0]) or not np.array_equal(tb_bits, tb):
+        fail(f"msg3 TB ok {bool(out['tb_ok'][0])}, bits equal {np.array_equal(tb_bits, tb)}")
+    rx_bytes = np.packbits(tb_bits[0].astype(np.uint8)).tobytes()
+    rx_rrc_pdu = rx_bytes[2: 2 + int.from_bytes(rx_bytes[:2], "big")]
+    if rrc.decode_ul(rx_rrc_pdu)[0] != "rrcSetupRequest":
+        fail("msg3 does not hold an rrcSetupRequest")
+
+    with meas.measure("callflow rrc setup"):
+        gnb_rrc.handle_ul(rnti, rx_rrc_pdu)
+        resolved = ue_mac.on_contention_resolution(rnti, rx_rrc_pdu)
+        ue_rrc.handle_dl(0, dl_pdus.pop(0))
+        gnb_rrc.handle_ul(rnti, ul_pdus.pop(0))
+    if not resolved or ue_mac.c_rnti != rnti or gnb_rrc.ue[rnti].state != "CONNECTED":
+        fail(f"RRC setup: contention resolved {resolved}, state {gnb_rrc.ue[rnti].state}")
+
+    with meas.measure("callflow nas + ngap"):
+        ue_nas, amf_nas = nas.UeNas(), nas.AmfStub()
+        dl_nas = []
+        gnb_ngap = ngap.GnbNgap(nas_downstream=lambda r, pdu: dl_nas.append(pdu))
+        amf_ngap = ngap.AmfNgapStub(nas_handler=amf_nas)
+        gnb_ngap.send = tap("ngap ul", amf_ngap.handle)
+        amf_ngap.send = tap("ngap dl", gnb_ngap.handle)
+        gnb_ngap.ng_setup()
+        ran_id = gnb_ngap.initial_ue_message(rnti, ue_nas.start())
+        for _ in range(10):
+            if not dl_nas:
+                break
+            pdu = dl_nas.pop(0)
+            wire.append(("nas dl", pdu))
+            for up in ue_nas.handle(pdu):
+                wire.append(("nas ul", up))
+                gnb_ngap.uplink_nas(ran_id, up)
+    sessions = gnb_ngap.ue[ran_id]["sessions"]
+    if ue_nas.state != "SESSION" or ue_nas.ip != "10.0.0.2" or not sessions:
+        fail(f"NAS: state {ue_nas.state}, ip {ue_nas.ip}, sessions {sessions}")
+
+    with meas.measure("callflow security + drb"):
+        gnb_rrc.start_security(rnti)
+        ue_rrc.handle_dl(1, dl_pdus.pop(0))
+        gnb_rrc.handle_ul(rnti, ul_pdus.pop(0))
+        key = bytes(range(16))
+        got_dl = []
+        pdcp_gnb = PdcpEntity(PdcpConfig(bearer_id=1, ciphering=True, integrity=True,
+                                         key_enc=key, key_int=key, direction=DIR_DL),
+                              deliver=lambda p: None)
+        pdcp_ue = PdcpEntity(PdcpConfig(bearer_id=1, ciphering=True, integrity=True,
+                                        key_enc=key, key_int=key, direction=DIR_UL),
+                             deliver=got_dl.append)
+        rlc_gnb = RlcUm(deliver=tap("rlc sdu", lambda p: pdcp_ue.pdu_in(p)))
+        ip_pkt = b"E\x00\x00\x28" + bytes(36)
+        pdcp_pdu = pdcp_gnb.sdu_in(ip_pkt)
+        wire.append(("pdcp", pdcp_pdu))
+        rlc_gnb.sdu_in(pdcp_pdu)
+        while (pdu := rlc_gnb.pdu_out(60)) is not None:
+            wire.append(("rlc", pdu))
+            rlc_gnb.pdu_in(pdu)
+    if not gnb_rrc.ue[rnti].security_on or got_dl != [ip_pkt]:
+        fail(f"security {gnb_rrc.ue[rnti].security_on}, DRB delivered {got_dl}")
+
+    with meas.measure("callflow gtp-u"):
+        got_upf = []
+        upf = gtpu.GtpuEndpoint(deliver=lambda sid, p: got_upf.append(p))
+        gnb_up = gtpu.GtpuEndpoint(transport=tap("gtpu", upf.receive))
+        gnb_up.add_session(1, local_teid=0x10, remote_teid=sessions[0]["teid"])
+        upf.add_session(1, local_teid=sessions[0]["teid"], remote_teid=0x10)
+        gnb_up.send(1, ip_pkt)
+    if got_upf != [ip_pkt]:
+        fail(f"GTP-U delivered {got_upf}")
+    return {"prach": (preamble, delay), "tb_bits": tb_bits, "wire": wire}
+
+
+def _copies(fn) -> list:
+    """The host <-> device copies one call of fn makes in the fronthaul
+    codecs, as (file, line): the synchronizing operations that
+    torch.cuda.set_sync_debug_mode("warn") reports from fronthaul/ (a
+    pageable copy synchronizes either way; the codecs have no other sync)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message) and "fronthaul" in w.filename]
+
+
+def _fronthaul(name: str, pack, unpack, decode, sent, tol: float, tb, held: dict,
+               meas: profiling.MeasGroup, card: str) -> list:
+    """One lower split at the main path's configuration: `pack` cuts the
+    slot's packets on the card, equal to the CPU packer's on the same values;
+    the packets shuffled by a seeded generator, `unpack` rebuilds the slot
+    on the card within `tol` of max|sent|; `decode` passes every TB through
+    K3 and K1, the first call of each held against its plain version; ms per
+    stage (MeasGroup, FH_TIMED calls each, ended by a synchronize), packets,
+    bytes and host copies per slot."""
+    pkts = pack(sent)
+    if pkts != pack(sent.cpu()):
+        raise AssertionError(f"{name}: the card's packets differ from the CPU packer's")
+    order = np.random.default_rng(SEED).permutation(len(pkts))
+    shuffled = [pkts[i] for i in order]
+    got = unpack(shuffled)
+    err = float((got - sent).abs().max() / sent.abs().max())
+    if not err < tol:
+        raise AssertionError(f"{name}: rebuilt slot within {err:.3e} of max|sent|, bound {tol}")
+    lines = []
+    with _held_to_plain(f"phase 13 {name}", held, lines, limit=1):
+        out = decode(got)
+    _decoded(f"phase 13 {name}", out, tb)
+    for _ in range(FH_TIMED):
+        with meas.measure(f"{name} pack"):
+            pack(sent)
+        with meas.measure(f"{name} rebuild") as box:
+            box["sync"] = unpack(shuffled)
+        with meas.measure(f"{name} decode") as box:
+            box["sync"] = decode(got)["tb_ok"]
+    copies_pack, copies_unpack = _copies(lambda: pack(sent)), _copies(lambda: unpack(shuffled))
+    if len(copies_pack) != 1 or len(copies_unpack) != 1:
+        raise AssertionError(f"{name}: host copies per slot {copies_pack} packing, "
+                             f"{copies_unpack} rebuilding; want one each")
+    print(f"{name} at 273 PRB 2x2 MCS 16, B = 1: {len(pkts)} datagrams, "
+          f"{sum(len(p) for p in pkts)} bytes a slot; packets equal the CPU packer's; "
+          f"rebuilt from shuffled packets within {err:.3e} of max|sent|; TB decoded through "
+          f"K3 and K1; ms pack {1e3 * meas[f'{name} pack'].mean:.3f}, rebuild "
+          f"{1e3 * meas[f'{name} rebuild'].mean:.3f}, decode "
+          f"{1e3 * meas[f'{name} decode'].mean:.3f} (host clock, mean of {FH_TIMED}); host "
+          f"copies a slot (synchronizing ops in fronthaul/): packing {copies_pack}, "
+          f"rebuilding {copies_unpack}, on {card}")
+    for line in lines:
+        print(f"  {line}")
+    return pkts
+
+
+def _profiled_receive(cfg, pkts, n_samp: int, dev, attempts: int = 3) -> None:
+    """Phase 13 (d): a profile_to capture of the IF5 receive (rebuild, then
+    pusch_rx); its Chrome trace must hold the trace() spans and the rows of
+    K3 and K1.  A capture that recorded no row of either is taken again, as
+    the profiler can drop a session's kernel rows."""
+    for attempt in range(1, attempts + 1):
+        with profiling.profile_to(str(PROFILE_DIR)):
+            with profiling.trace("phase13 if5 packets_to_slot"):
+                wav = if5.packets_to_slot(pkts, cfg.n_rx, n_samp, device=dev)[3]
+            with profiling.trace("phase13 pusch_rx"):
+                pusch.pusch_rx(cfg, wav[None], n_iters=FH_ITERS)
+        events = json.loads((PROFILE_DIR / profiling.TRACE_FILE).read_text())["traceEvents"]
+        spans = {e["name"]: e.get("dur", 0.0) for e in events
+                 if e.get("name", "").startswith("phase13 ")}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        rows = {k: [e.get("dur", 0.0) for e in kernels if DEVICE_KERNELS[k][0] in e["name"]]
+                for k in ("pusch_frontend", "layered_f32")}
+        if set(spans) == {"phase13 if5 packets_to_slot", "phase13 pusch_rx"} and \
+                all(rows.values()):
+            break
+        print(f"profile_to attempt {attempt}: spans {sorted(spans)}, {len(kernels)} kernel "
+              f"rows, K3/K1 rows { {k: len(v) for k, v in rows.items()} }")
+    else:
+        raise AssertionError(f"profile_to: no capture of {attempts} held the spans and the "
+                             f"rows of K3 and K1")
+    print(f"profile_to ({profiling.TRACE_FILE}, attempt {attempt}, {len(events)} events, "
+          f"{len(kernels)} kernel rows): spans "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in spans.items())
+          + "; " + ", ".join(f"{k} {len(v)} row(s) {sum(v):.1f} us" for k, v in rows.items()))
+
+
+def phase_slice13(dev, gen, card: str) -> dict:
+    """Phase 13: (a) the SA call flow, (b) IF5 and (c) the O-RAN U-plane at
+    the main path's configuration, (d) a profile_to capture."""
+    t0 = time.perf_counter()
+    held, meas = {}, profiling.MeasGroup()
+    _reset_counts()
+    with _pinned_urandom():
+        cpu = _sa_call_flow(torch.device("cpu"), profiling.MeasGroup())
+    lines, first = [], profiling.MeasGroup()
+    with _pinned_urandom(), _held_to_plain("phase 13 call flow msg3", held, lines, limit=1):
+        runs = [_sa_call_flow(dev, first)]
+    with _pinned_urandom():
+        runs.append(_sa_call_flow(dev, meas))          # warm: the stages' figures
+    c = _counts()
+    if c != {"layered_f32": 2, "pusch_frontend": 2}:
+        raise AssertionError(f"SA call flow: launches {c}, want K3 and K1 once a run (msg3)")
+    for got in runs:
+        if got["prach"] != cpu["prach"] or not np.array_equal(got["tb_bits"], cpu["tb_bits"]) \
+                or got["wire"] != cpu["wire"]:
+            raise AssertionError("SA call flow: the card's detection, msg3 bits or PDUs "
+                                 "differ from the CPU run's")
+    tags = sorted({w[0] for w in got["wire"]})
+    print(f"SA call flow, twice: PRACH preamble and delay {got['prach']}, msg3 TB "
+          f"({pusch.PuschConfig(**MSG3_PUSCH).tbs} bits) through K3 and K1; "
+          f"{len(got['wire'])} PDUs ({', '.join(tags)}) equal the CPU run's; launches {c} "
+          f"on {card}; the first run's stages (first calls on the card):")
+    for line in first.report().splitlines():
+        print(f"  {line}")
+    for line in lines:
+        print(f"  {line}")
+
+    cfg = pusch.PuschConfig(**FH_PUSCH)
+    tb = torch.randint(0, 2, (1, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
+    rx = _bench_channel(pusch.pusch_tx(cfg, tb)[0], gen)
+    n_samp = rx.shape[-1]
+    pkts = _fronthaul(
+        "IF5", lambda x: if5.slot_to_packets(if5.UL_TD, 3, 7, x),
+        lambda p: if5.packets_to_slot(p, cfg.n_rx, n_samp, device=dev)[3],
+        lambda w: pusch.pusch_rx(cfg, w[None], n_iters=FH_ITERS), rx[0], IF5_TOL, tb, held,
+        meas, card)
+    grid = extract_from_grid(cfg.fp, ofdm_demodulate(cfg.fp, rx, 0))[0]
+    _fronthaul(
+        "O-RAN U-plane", lambda g: oran.grid_to_uplane(g, slot=7, max_prb_per_pkt=FH_MAX_PRB),
+        lambda p: oran.uplane_to_grid(p, cfg.n_rx, grid.shape[1], grid.shape[2], device=dev),
+        lambda g: pusch.pusch_rx_grid(cfg, g[None], n_iters=FH_ITERS), grid, ORAN_TOL, tb,
+        held, meas, card)
+    _profiled_receive(cfg, pkts, n_samp, dev)
+    launches = _counts()
+    if sorted(held) != sorted(launches) or any(held[k][0] != 3 for k in held):
+        raise AssertionError(f"phase 13: calls held {held}, want 3 of each kernel")
+    print("phase 13 stages (utils/profiling.py MeasGroup, host clock, each call ended by a "
+          "synchronize):")
+    for line in meas.report().splitlines():
+        print(f"  {line}")
+    print(f"phase 13: the SA call flow, IF5 and O-RAN 7.2 through K3 and K1, launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s on {card}")
+    return {"launches": launches, "held": held}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -2061,6 +2416,7 @@ def main() -> None:
     slice10 = phase_slice10(dev, gen, smi_line)
     phase_slice11(dev, gen, smi_line)
     slice12 = phase_slice12(dev, gen, smi_line)
+    slice13 = phase_slice13(dev, gen, smi_line)
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -2083,6 +2439,9 @@ def main() -> None:
                               launches_phase12=slice12["launches"][name],
                               held_phase12=slice12["held"][name][0],
                               max_abs_err_phase12=slice12["held"][name][1],
+                              launches_phase13=slice13["launches"][name],
+                              held_phase13=slice13["held"][name][0],
+                              max_abs_err_phase13=slice13["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":

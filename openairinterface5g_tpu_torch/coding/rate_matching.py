@@ -56,6 +56,42 @@ def _rx_runs(bg: int, Z: int, kc: int, rv: int, E: int, F: int,
     return tuple((int(s), int(sel[s]), int(e - s)) for s, e in zip(starts, ends))
 
 
+@functools.lru_cache(maxsize=64)
+def fused_rx_indices(bg: int, Z: int, kc: int, rv: int, es: tuple, qm: int,
+                     F: int, ncb: int | None = None) -> np.ndarray:
+    """One (G,) int32 host table fusing each code block's deinterleave and
+    rate-match scatter: codeword position g -> flat index into the (C*N,)
+    LLR buffer of the C code blocks.  Position i*Qm + j of a block's f holds
+    e[j*(E/Qm) + i] (the deinterleave), which sits at d-index sel[e-index]."""
+    N = _DEN[bg] * Z
+    parts = []
+    for j, E in enumerate(es):
+        sel = selection_indices(bg, Z, kc, rv, E, F, ncb)          # (E,) into N
+        f_pos = np.arange(E)
+        parts.append(j * N + sel[(f_pos % qm) * (E // qm) + f_pos // qm])
+    return np.concatenate(parts).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def fused_rx_gather_layers(bg: int, Z: int, kc: int, rv: int, es: tuple,
+                           qm: int, F: int, ncb: int | None = None) -> np.ndarray:
+    """Inverse of fused_rx_indices as gather layers: (L, C*N) int32 codeword
+    positions, G (one past the last) where a buffer entry has no source in
+    that layer; L is the largest repetition count (1 unless E exceeds the
+    usable Ncb).  Layer r of entry t holds the r-th codeword position, in
+    order, that lands on t."""
+    N = _DEN[bg] * Z
+    idx = fused_rx_indices(bg, Z, kc, rv, es, qm, F, ncb)
+    CN, G = len(es) * N, len(idx)
+    order = np.argsort(idx, kind="stable")
+    sorted_t = idx[order]
+    counts = np.bincount(idx, minlength=CN)
+    rank = np.arange(G) - (np.cumsum(counts) - counts)[sorted_t]
+    layers = np.full((max(1, int(counts.max())), CN), G, dtype=np.int32)
+    layers[rank, sorted_t] = order
+    return layers
+
+
 def _cb_groups(es: tuple) -> list:
     """Contiguous groups (j0, j1, E) of identical per-CB rate-matched size."""
     groups = []

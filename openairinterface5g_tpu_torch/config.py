@@ -1,7 +1,8 @@
 """NR numerology / frame parameters (TS 38.211 §4-5).
 
 The port's own copy of the part of openairinterface5g_tpu/config.py it
-uses (``FrameParams``, ``fft_size_for_rb``, ``make_frame_params``), so that
+uses (``FrameParams``, ``fft_size_for_rb``, ``make_frame_params``,
+``CONFIGS``), so that
 it imports nothing of the JAX package.  All values are host-side Python
 ints.  tests/test_torch_pusch.py holds it against the original.
 """
@@ -97,3 +98,14 @@ class FrameParams:
 @functools.lru_cache(maxsize=32)
 def make_frame_params(mu: int, n_rb: int) -> FrameParams:
     return FrameParams(mu=mu, n_rb=n_rb, fft_size=fft_size_for_rb(n_rb))
+
+
+# the named carrier configurations: (mu, n_rb)
+CONFIGS = {
+    "10MHz@15kHz": (0, 52),
+    "20MHz@15kHz": (0, 106),
+    "40MHz@30kHz": (1, 106),
+    "60MHz@30kHz": (1, 162),
+    "80MHz@30kHz": (1, 217),
+    "100MHz@30kHz": (1, 273),
+}

@@ -54,6 +54,21 @@ def noise_variance(y_pilots, h_pilots: torch.Tensor, pilots) -> torch.Tensor:
     return torch.mean(d.abs() ** 2, dim=-1) / 2.0
 
 
+def estimate_slot(rx_grid_pilotsyms: torch.Tensor, pilots: torch.Tensor,
+                  pilot_sc: np.ndarray, n_sc: int, delta: int = 0):
+    """Channel estimate for one DMRS symbol.
+
+    rx_grid_pilotsyms: (..., n_sc) received frequency-domain symbol holding
+    the DMRS; pilots: (n_pilots,) reference sequence; pilot_sc: (n_pilots,)
+    subcarrier indices.  Returns (h_full (..., n_sc), nvar (...)).
+    """
+    yp = rx_grid_pilotsyms[..., torch.as_tensor(pilot_sc, device=rx_grid_pilotsyms.device)]
+    hp = ls_estimate(yp, pilots)
+    h = comb2_interpolate(hp, n_sc, delta)
+    nvar = noise_variance(yp, hp, pilots)
+    return h, nvar
+
+
 def delay_domain_denoise(hp: torch.Tensor, keep_frac: float = 0.1,
                          guard_frac: float = 0.02) -> torch.Tensor:
     """Denoise pilot-domain LS estimates (..., P) by truncation in the delay

@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+QAM_ORDERS = {"pi2bpsk": 1, "bpsk": 1, "qpsk": 2, "16qam": 4, "64qam": 6, "256qam": 8}
+
 
 @functools.lru_cache(maxsize=8)
 def constellation(qm: int) -> np.ndarray:
@@ -69,6 +71,12 @@ def layer_map(symbols: torch.Tensor, n_layers: int) -> torch.Tensor:
     M = symbols.shape[-1]
     lead = symbols.shape[:-1]
     return symbols.reshape(*lead, M // n_layers, n_layers).transpose(-1, -2)
+
+
+def layer_demap(layers: torch.Tensor) -> torch.Tensor:
+    """Inverse of layer_map: (..., L, M/L) -> (..., M)."""
+    L, ml = layers.shape[-2:]
+    return layers.transpose(-1, -2).reshape(*layers.shape[:-2], L * ml)
 
 
 def precode(layers: torch.Tensor, W) -> torch.Tensor:

@@ -67,3 +67,32 @@ def ofdm_demodulate(fp: FrameParams, samples: torch.Tensor, slot: int) -> torch.
         segs.append(chunk[..., cp:])
     x = torch.cat(segs, dim=-2)
     return torch.fft.fft(x, dim=-1).to(torch.complex64) / np.float32(math.sqrt(fp.fft_size))
+
+
+def symbol_rotation(fp: FrameParams, slot: int, f0: float) -> np.ndarray:
+    """Per-symbol phase compensation e^{-j 2 pi f0 t_l} (TS 38.211 §5.4).
+
+    Each OFDM symbol l starting at sample offset t_l (CP included) accrues
+    the upconversion phase 2 pi f0 t_l at carrier offset f0 (the reference's
+    init_symbol_rotation, nr_modulation.c:587).  Returns (symbols_per_slot,)
+    complex64, a host table.
+    """
+    offs = fp.symbol_offsets(slot) + fp.cp_lengths(slot)
+    t = offs / fp.sample_rate
+    return np.exp(-2j * np.pi * f0 * t).astype(np.complex64)
+
+
+def apply_rotation_tx(fp: FrameParams, grid: torch.Tensor, slot: int, f0: float) -> torch.Tensor:
+    """Apply the TX symbol rotation to a (..., symbols, fft) frequency grid."""
+    if f0 == 0.0:
+        return grid
+    rot = torch.as_tensor(symbol_rotation(fp, slot, f0), device=grid.device)
+    return grid * rot[:, None]
+
+
+def apply_rotation_rx(fp: FrameParams, grid: torch.Tensor, slot: int, f0: float) -> torch.Tensor:
+    """Undo the TX rotation at RX (its conjugate)."""
+    if f0 == 0.0:
+        return grid
+    rot = torch.as_tensor(np.conj(symbol_rotation(fp, slot, f0)), device=grid.device)
+    return grid * rot[:, None]

@@ -128,6 +128,18 @@ def ptrs_sc_indices(n_prb: int, k_ptrs: int = 2, re_offset: int = 0) -> np.ndarr
 # SRS (TS 38.211 §6.4.1.4)
 # --------------------------------------------------------------------------
 
+def estimate_common_phase(y: torch.Tensor, h: torch.Tensor, pilots: torch.Tensor) -> torch.Tensor:
+    """Per-symbol common phase error from PTRS REs.
+
+    y: (..., n_sym, n_ptrs) received PTRS REs; h: the channel at those REs
+    (same shape or broadcastable); pilots: (n_ptrs,) reference values.
+    Returns (..., n_sym) unit-magnitude phasors exp(-j phi_hat) to apply to
+    the data REs (nr_pusch_ptrs_processing:498 analog).
+    """
+    z = torch.sum(y * torch.conj(h * pilots), dim=-1)
+    return torch.conj_physical(z / torch.clamp(z.abs(), min=1e-12))
+
+
 def srs_sequence(n_prb: int, comb: int = 2, u: int = 0, v: int = 0,
                  cyclic_shift: int = 0, n_cs_max: int = 8) -> np.ndarray:
     """(m_sc,) SRS sequence, m_sc = 12 n_prb / comb: the low-PAPR base with

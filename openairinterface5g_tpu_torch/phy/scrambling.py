@@ -101,3 +101,8 @@ def scramble_llrs(llrs: torch.Tensor, cinit: int) -> torch.Tensor:
 def pusch_cinit(rnti: int, q: int, n_id: int) -> int:
     """TS 38.211 §6.3.1.1 data scrambling cinit (uint32 arithmetic)."""
     return ((int(rnti) << 15) + (q << 14) + n_id) & 0xFFFFFFFF
+
+
+def pdsch_cinit(rnti: int, q: int, n_id: int) -> int:
+    """TS 38.211 §7.3.1.1 data scrambling cinit (uint32 arithmetic)."""
+    return ((int(rnti) << 15) + (q << 14) + n_id) & 0xFFFFFFFF

@@ -28,6 +28,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..sim import resolve_device
+
 
 @dataclasses.dataclass
 class SlotStats:
@@ -54,8 +56,8 @@ class SlotExecutor:
 
     step_fn(slot_idx, *args) enqueues the slot's work and returns tensors
     (or lists, tuples, dicts of them); results are surfaced in order, on
-    the host.  device: where step_fn's work runs (default: the current
-    CUDA device when CUDA is available, else the CPU).
+    the host.  device: where step_fn's work runs; the card unless the
+    caller asks for the CPU (without CUDA the default raises).
     """
 
     def __init__(self, step_fn: Callable[..., Any], depth: int = 2,
@@ -65,9 +67,7 @@ class SlotExecutor:
         self.depth = depth
         self.slot_duration_s = slot_duration_s
         self.stats: list[SlotStats] = []
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device("cuda" if device is None else device)
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
 

@@ -1,10 +1,10 @@
 """Transport-block parameters: MCS tables and TBS determination (TS 38.214).
 
 The port's own copy of the part of openairinterface5g_tpu/transport.py it
-uses (``mcs_to_qm_rate``, ``compute_tbs``), so that it imports nothing of
-the JAX package.  The LBRM reference TBS is a field of ``PuschConfig``
-given by the caller, so no LBRM helper is needed here.
-tests/test_torch_pusch.py holds both functions against the originals.
+uses (``mcs_to_qm_rate``, ``compute_tbs`` and the LBRM helpers
+``nprb_lbrm``, ``compute_tbs_lbrm``, ``ncb_lbrm``), so that it imports
+nothing of the JAX package.  tests/test_torch_pusch.py and
+tests/test_torch_coding.py hold them against the originals.
 """
 from __future__ import annotations
 
@@ -68,3 +68,26 @@ def compute_tbs(qm: int, r1024: float, n_prb: int, n_symb: int,
         c = math.ceil((npinfo + 24) / 8424)
         return 8 * c * math.ceil((npinfo + 24) / (8 * c)) - 24
     return 8 * math.ceil((npinfo + 24) / 8) - 24
+
+
+# TS 38.212 5.4.2.1: the LBRM PRB counts
+_NPRB_LBRM = (32, 66, 107, 135, 162, 217, 273)
+
+
+def nprb_lbrm(n_prb: int) -> int:
+    for v in _NPRB_LBRM:
+        if n_prb <= v:
+            return v
+    return _NPRB_LBRM[-1]
+
+
+def compute_tbs_lbrm(n_prb: int, n_layers: int = 1, table: int = 1) -> int:
+    """TBS_LBRM per TS 38.212 5.4.2.1 (nr_compute_tbslbrm analog)."""
+    qm = 8 if table == 2 else 6
+    return compute_tbs(qm, 948, nprb_lbrm(n_prb), 14, 0, 0, min(n_layers, 4))
+
+
+def ncb_lbrm(N: int, C: int, n_prb: int, n_layers: int = 1, table: int = 1) -> int:
+    """Limited circular buffer size Ncb = min(N, floor(TBS_LBRM/(C*2/3)))."""
+    nref = int(math.floor(compute_tbs_lbrm(n_prb, n_layers, table) / (C * (2 / 3))))
+    return min(N, nref)

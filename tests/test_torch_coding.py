@@ -160,3 +160,47 @@ def test_flooding_decode_matches_jax(bg, Z, snr_db):
     bits, ok = decoder("reference")(tldpc.build_graph(bg, Z), _t(llr), n_iters=20)
     if bool(ok.all()):
         np.testing.assert_array_equal(bits.numpy(), info)
+
+
+# ---- leftover functions of the ported modules (ROADMAP Queue 1 item 11) ----
+
+@pytest.mark.parametrize("bg,Z,rv,es,qm,F,ncb", RM_CASES + [
+    (1, 64, 0, (6000, 3000), 2, 0, None),    # E > Ncb = 4224: repetition, two layers
+    (2, 16, 2, (2500,), 6, 8, 600),          # E > 4 x the limited buffer
+])
+def test_fused_rx_tables(bg, Z, rv, es, qm, F, ncb):
+    """fused_rx_indices and its inverse gather layers, integer-equal to JAX's
+    over BG1 and BG2, repetition included."""
+    kc = 22 if bg == 1 else 10
+    want = jrm.fused_rx_indices(bg, Z, kc, rv, es, qm, F, ncb)
+    got = trm.fused_rx_indices(bg, Z, kc, rv, es, qm, F, ncb)
+    assert got.dtype == want.dtype and got.shape == (sum(es),)
+    np.testing.assert_array_equal(got, want)
+    want = jrm.fused_rx_gather_layers(bg, Z, kc, rv, es, qm, F, ncb)
+    got = trm.fused_rx_gather_layers(bg, Z, kc, rv, es, qm, F, ncb)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if max(es) > (ncb or (50 if bg == 2 else 66) * Z) - F:
+        assert got.shape[0] > 1
+
+
+def test_lbrm_helpers():
+    """nprb_lbrm, compute_tbs_lbrm and ncb_lbrm equal JAX's
+    (tests/test_ldpc.py:107), and the limited buffer rate-matches equal."""
+    from openairinterface5g_tpu import transport as jtr
+    from openairinterface5g_tpu_torch import transport as ttr
+    for n_prb in (1, 24, 32, 33, 66, 106, 107, 162, 217, 273, 300):
+        assert ttr.nprb_lbrm(n_prb) == jtr.nprb_lbrm(n_prb)
+        for layers in (1, 2, 4, 8):
+            for table in (1, 2):
+                assert ttr.compute_tbs_lbrm(n_prb, layers, table) == \
+                    jtr.compute_tbs_lbrm(n_prb, layers, table)
+                for N, C in ((25344, 1), (25344, 10), (10400, 3), (3328, 26)):
+                    assert ttr.ncb_lbrm(N, C, n_prb, layers, table) == \
+                        jtr.ncb_lbrm(N, C, n_prb, layers, table)
+    g = jldpc.build_graph(1, 384)
+    ncb = ttr.ncb_lbrm(g.N, 10, 106)
+    assert ncb < g.N
+    for rv in (0, 2, 3):
+        np.testing.assert_array_equal(trm.selection_indices(1, 384, 22, rv, ncb, 0, ncb),
+                                      jrm.selection_indices(1, 384, 22, rv, ncb, 0, ncb))

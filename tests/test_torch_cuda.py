@@ -941,3 +941,99 @@ def test_ra_over_the_air_on_the_card(cuda):
     for role in ("[gnb]", "[ue]"):
         assert [x for x in lines if x.startswith(role)] == \
             [x for x in record.splitlines() if x.startswith(role)]
+
+
+# ---- slice 13: the fronthaul codecs, the call flow's msg3, profiling, the executor ----
+
+def _crandn_np(rng, shape, scale=1.0):
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * scale
+            ).astype(np.complex64)
+
+
+def test_fronthaul_packers_on_the_card_match_cpu(cuda):
+    """IF5 and the O-RAN U-plane: the same bytes packed on the card as on
+    the CPU (a zero chunk and PRB, a short chunk, a power-of-two max, values
+    past 2**15 included), and the same bits rebuilt on the card."""
+    from openairinterface5g_tpu_torch.fronthaul import if5, oran
+    rng = np.random.default_rng(13)
+    x = _crandn_np(rng, (2, 7680), 0.3)
+    x[1, 2048:4096] = 0
+    x[0, 100] = 1.0
+    x[1, 5000] = 1e5
+    xc = torch.as_tensor(x)
+    pkts = if5.slot_to_packets(if5.UL_TD, 7, 3, xc.to(cuda))
+    assert pkts == if5.slot_to_packets(if5.UL_TD, 7, 3, xc)
+    card = if5.packets_to_slot(pkts[::-1], 2, 7680, device=cuda)[3]
+    cpu = if5.packets_to_slot(pkts[::-1], 2, 7680, device="cpu")[3]
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+    g = _crandn_np(rng, (2, 14, 12 * 273), 2.3)
+    g[0, 3, :12] = 0
+    g[0, 4, :12] = 2.0
+    g[1, 5, :12] = 4e4
+    gc = torch.as_tensor(g)
+    pk = oran.grid_to_uplane(gc.to(cuda), max_prb_per_pkt=64)
+    assert len(pk) == 140 and pk == oran.grid_to_uplane(gc, max_prb_per_pkt=64)
+    assert pk[:5] == oran.symbol_to_uplane(0, 0, 0, 0, 0, 0, gc[0, 0].to(cuda))
+    card = oran.uplane_to_grid(pk[::-1], 2, 14, 12 * 273, device=cuda)
+    assert torch.equal(card.cpu(), oran.uplane_to_grid(pk[::-1], 2, 14, 12 * 273, device="cpu"))
+    u = oran.unpack_uplane(pk[7], device=cuda)
+    assert u.iq.device.type == "cuda" and torch.equal(u.iq.cpu(),
+                                                      oran.unpack_uplane(pk[7], device="cpu").iq)
+
+
+def test_msg3_through_k3_and_k1(cuda):
+    """The SA call flow's msg3 (an RRCSetupRequest in a 6-PRB MCS-4 PUSCH TB,
+    12 iterations, tests/test_e2e_callflow.py) through K3 and K1 once each:
+    the CPU's plain path's bits and the request recovered."""
+    from openairinterface5g_tpu_torch.l3 import rrc
+    sent = []
+    ue = rrc.UeRrc(send_ul=lambda srb, pdu: sent.append(pdu))
+    ue.connect(nas_pdu=b"")
+    cfg = pusch.PuschConfig(mu=1, n_prb=6, mcs=4, n_layers=1, n_rx=1, rnti=0x4601,
+                            decoder_backend="kernel")
+    payload = np.frombuffer(len(sent[0]).to_bytes(2, "big") + sent[0], np.uint8)
+    tb = np.zeros((1, cfg.tbs), np.int8)
+    tb[0, : 8 * len(payload)] = np.unpackbits(payload)
+    rng = np.random.default_rng(0)
+    tx = pusch.pusch_tx(cfg, torch.as_tensor(tb))[0]
+    rx = tx + torch.as_tensor(_crandn_np(rng, tuple(tx.shape), 0.02))
+    cpu = pusch.pusch_rx(cfg, rx, n_iters=12)
+    k1, k3 = ldpc_decoder.launches["layered_f32"], fe.launches
+    card = pusch.pusch_rx(cfg, rx.to(cuda), n_iters=12)
+    assert ldpc_decoder.launches["layered_f32"] - k1 == 1 and fe.launches - k3 == 1
+    assert bool(card["tb_ok"][0]) and bool(cpu["tb_ok"][0])
+    assert torch.equal(card["tb_bits"].cpu(), cpu["tb_bits"])
+    bits = card["tb_bits"][0].cpu().numpy().astype(np.uint8)
+    got = np.packbits(bits).tobytes()
+    assert rrc.decode_ul(got[2: 2 + int.from_bytes(got[:2], "big")])[0] == "rrcSetupRequest"
+
+
+def test_profiling_on_the_card(cuda, tmp_path):
+    """profile_to's trace holds the trace() span and the card's rows (K3's);
+    Meas.stop on a CUDA tensor waits for its stream."""
+    import json
+
+    from openairinterface5g_tpu_torch.utils import profiling
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=9, n_layers=1, n_rx=1)
+    y = _rx_grid(cfg, cuda, seed=3, B=2)
+    fe.frontend_planes(cfg, y)
+    with profiling.profile_to(str(tmp_path)):
+        with profiling.trace("card_frontend"):
+            fe.frontend_planes(cfg, y)
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())["traceEvents"]
+    assert "card_frontend" in {e.get("name") for e in events}
+    assert any(e.get("cat") == "kernel" and "frontend_kernel" in e["name"] for e in events)
+    m = profiling.Meas("slow")
+    x = torch.randn(2048, 2048, device=cuda)
+    m.start()
+    for _ in range(20):
+        x = x @ x / 2048
+    m.stop(x)
+    assert torch.cuda.current_stream(cuda).query()
+
+
+def test_executor_defaults_to_the_card(cuda):
+    from openairinterface5g_tpu_torch.runtime import executor
+    ex = executor.SlotExecutor(lambda i: torch.ones(1, device="cuda") * i)
+    assert ex.device.type == "cuda" and ex.stream is not None
+    assert [float(r) for r in ex.run([()] * 3)] == [0.0, 1.0, 2.0]

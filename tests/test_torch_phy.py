@@ -144,3 +144,56 @@ def test_llrs(qm):
     got = tllr.llrs(_t(x), _t(mag), qm)
     _close(got, jllr.llrs(jnp.asarray(x), jnp.asarray(mag), qm))
     _close(tllr.quantize(got * 3), jllr.quantize(jnp.asarray(got.numpy() * 3)))
+
+
+# ---- leftover functions of the ported modules (ROADMAP Queue 1 item 11) ----
+
+def test_pdsch_cinit_and_qam_orders():
+    assert tmod.QAM_ORDERS == jmod.QAM_ORDERS
+    for rnti, q, n_id in [(0x1234, 0, 0), (0xFFFF, 1, 1007), (1, 0, 5), (0x4601, 1, 1)]:
+        assert tscr.pdsch_cinit(rnti, q, n_id) == int(jscr.pdsch_cinit(rnti, q, n_id))
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 4])
+def test_layer_demap(n_layers):
+    """The inverse of layer_map (tests/test_phy.py:58) and equal to JAX's."""
+    rng = np.random.default_rng(n_layers)
+    sym = _cplx(rng, (2, 3, 12 * n_layers))
+    layers = tmod.layer_map(_t(sym), n_layers)
+    np.testing.assert_array_equal(tmod.layer_demap(layers).numpy(), sym)
+    np.testing.assert_array_equal(tmod.layer_demap(layers).numpy(),
+                                  np.asarray(jmod.layer_demap(jnp.asarray(layers.numpy()))))
+
+
+@pytest.mark.parametrize("mu,n_rb,slot,f0", [(1, 24, 0, 3.5e9), (1, 273, 3, 3.6192e9),
+                                              (0, 52, 1, 2.1e9), (1, 24, 0, 0.0)])
+def test_symbol_rotation(mu, n_rb, slot, f0):
+    """TS 38.211 §5.4 per-symbol rotation within 1e-6, TX then RX the identity."""
+    fp = make_frame_params(mu, n_rb)
+    rot = tofdm.symbol_rotation(fp, slot, f0)
+    np.testing.assert_array_equal(rot, jofdm.symbol_rotation(fp, slot, f0))
+    grid = _cplx(np.random.default_rng(9), (2, fp.symbols_per_slot, fp.fft_size))
+    tx = tofdm.apply_rotation_tx(fp, _t(grid), slot, f0)
+    _close(tx, jofdm.apply_rotation_tx(fp, jnp.asarray(grid), slot, f0), rtol=1e-6)
+    rx = tofdm.apply_rotation_rx(fp, tx, slot, f0)
+    _close(rx, jofdm.apply_rotation_rx(fp, jnp.asarray(tx.numpy()), slot, f0), rtol=1e-6)
+    _close(rx, grid, rtol=1e-6)
+
+
+def test_estimate_slot_and_common_phase():
+    rng = np.random.default_rng(11)
+    n_sc = 120
+    for delta in (0, 1):
+        y = _cplx(rng, (2, 2, n_sc))
+        pilots = _cplx(rng, (n_sc // 2,))
+        pilot_sc = np.arange(delta, n_sc, 2)
+        h, nvar = tce.estimate_slot(_t(y), _t(pilots), pilot_sc, n_sc, delta)
+        jh, jnvar = jce.estimate_slot(jnp.asarray(y), jnp.asarray(pilots), pilot_sc, n_sc, delta)
+        _close(h, jh)
+        _close(nvar, jnvar)
+    y, h, pilots = _cplx(rng, (3, 14, 6)), _cplx(rng, (3, 14, 6)), _cplx(rng, (6,))
+    y[0, 2] = 0                                       # a symbol with no energy: the 1e-12 floor
+    got = tref.estimate_common_phase(_t(y), _t(h), _t(pilots))
+    _close(got, jref.estimate_common_phase(jnp.asarray(y), jnp.asarray(h), jnp.asarray(pilots)))
+    _close(tref.estimate_common_phase(_t(y), _t(h[:1]), _t(pilots)),
+           jref.estimate_common_phase(jnp.asarray(y), jnp.asarray(h[:1]), jnp.asarray(pilots)))

@@ -172,7 +172,10 @@ def test_port_imports_no_jax():
             "          'l2.mac', 'radio.rfsim', 'radio.iqplayer', 'fapi.ue_if', 'runtime.ue_softmodem',\n"
             "          'l2.ue_mac', 'runtime.ra_ota', 'l2.security', 'l2.pdcp', 'l2.rlc', 'l2.sdap',\n"
             "          'l2.userplane', 'runtime.connected_ota', 'fronthaul.if4p5',\n"
-            "          'runtime.ru_l1_split'):\n"
+            "          'runtime.ru_l1_split', 'l3.rrc', 'l3.nas', 'l3.ngap', 'l3.gtpu', 'l3.f1ap',\n"
+            "          'l3.e1ap', 'l3.sctp', 'l3.e2ap', 'l3.xnap', 'l3.x2ap', 'fronthaul.if5',\n"
+            "          'fronthaul.oran', 'utils.confmod', 'utils.log', 'utils.ttrace', 'utils.itti',\n"
+            "          'utils.telnet', 'utils.vcd', 'utils.webscope', 'utils.profiling'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -302,3 +305,12 @@ def test_frontend_routing(monkeypatch):
     tpusch.pusch_rx_grid(dataclasses.replace(cfg, frontend_backend="kernel", llr_quant_bits=8),
                          grid, n_iters=1)
     assert calls == [1, 1]
+
+
+def test_copied_configs_match_jax():
+    from openairinterface5g_tpu import config as jc
+    from openairinterface5g_tpu_torch import config as tc
+    assert tc.CONFIGS == jc.CONFIGS
+    for mu, n_rb in tc.CONFIGS.values():
+        assert dataclasses.asdict(tc.make_frame_params(mu, n_rb)) == \
+            dataclasses.asdict(jc.make_frame_params(mu, n_rb))
