@@ -66,6 +66,11 @@ Drives the port's paths with every hand-written CUDA kernel:
     ``utils/``): the 5G SA call flow with msg3 through K3 and K1, and the
     IF5 and O-RAN 7.2 splits carrying the main path's 273-PRB slot into K3
     and K1, with ``utils/profiling.py`` timing and tracing them.
+  * slice 14, multi-device (``parallel/``: ``multihost``, ``mesh``,
+    ``collectives``, ``launch``, ``sharded``, ``pusch_sp``, ``dryrun``) on
+    torch.distributed over NCCL: the dry run's dp, sp and dp x cb phases at
+    273 PRB on every card, one rank each, through K3, K1 layered and K1
+    flooding.
 
 Phases, one line or more each:
   1. device: the card's name and power limit (nvidia-smi); no GPU -> error
@@ -216,6 +221,20 @@ Phases, one line or more each:
      the trace() spans and the rows of K3 and K1; the first K3 and K1 call
      of (a), (b) and (c) held against the plain versions; the stages'
      MeasGroup report
+ 14. slice 14, parallel/dryrun.py through launch.spawn on every card (at
+     most PHASE14_MAX_WORLD), one rank each over NCCL, the kernels built by
+     phase 2: on every rank (a) dp: one trial per rank at 273 PRB, MCS 16,
+     2x2, two HARQ rounds over AWGN at 18 dB through pusch_rx (K3 and K1
+     layered, twice each), every trial passing its CRC (the psum'd count)
+     with the sent bits; (b) sp: 2 noise-free TBs at MCS 9, 2 layers,
+     subcarrier-sharded over the largest n <= min(world, 7) dividing 273
+     (K1 flooding once; K3 not), both TBs equal to the sent bits; (c) dp x
+     cb: one trial per rank on a (2, world / 2) or (1, world) mesh, the
+     frontend (K3) and an all_to_all reshard onto the code blocks (K1
+     flooding), every code block passing; each phase's launches exactly
+     PHASE14_LAUNCHES, its host-clock seconds; the rank's first call of K3,
+     K1 layered and K1 flooding held against the plain versions; a rank
+     that raises or an NCCL timeout fails the run
 The line before the last is {"kernels": [...]}: every kernel with its
 launches, and the error, times and bound of one configuration (slice 1's
 kernels at the main path's tensors; the other decoders at BG1 Z=384 x 208,
@@ -232,7 +251,9 @@ launches_phase10, held_phase10 and max_abs_err_phase10, and for phase 12
 under launches_phase12 (summed over (a)'s timed runs and (b)-(e), the OTA
 endpoints' counted in their processes), held_phase12 and
 max_abs_err_phase12, and for phase 13 under launches_phase13, held_phase13
-and max_abs_err_phase13.
+and max_abs_err_phase13; K1 layered f32, K1 flooding f32 and K3 carry
+launches_phase14, held_phase14 and max_abs_err_phase14 (summed over the
+ranks, the largest error of any rank).
 The last line is {"ok": true,
 "device": {...}}.  Any failure raises and exits non-zero.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -275,6 +296,7 @@ from openairinterface5g_tpu_torch.models import (csirs, gnb, mu_mimo, pbch, pdcc
 from openairinterface5g_tpu_torch.ops import _cuda, ldpc_decoder, tiny
 from openairinterface5g_tpu_torch.ops import pusch_frontend as fe
 from openairinterface5g_tpu_torch.ops.pusch_frontend_cases import CARD_CASES
+from openairinterface5g_tpu_torch.parallel import dryrun, launch
 from openairinterface5g_tpu_torch.phy import ofdm
 from openairinterface5g_tpu_torch.phy.ofdm import extract_from_grid, ofdm_demodulate
 from openairinterface5g_tpu_torch.runtime import (lte_softmodem, ru_l1_split, softmodem,
@@ -805,21 +827,23 @@ def phase_probes(dev, gen) -> dict:
 
 
 @contextlib.contextmanager
-def _held_to_plain(cid: str, held: dict, lines: list, limit: int = SIM_HELD_CALLS):
+def _held_to_plain(cid: str, held: dict, lines: list, limit: int = SIM_HELD_CALLS,
+                   kernels: tuple = ("pusch_frontend", "layered_f32")):
     """While a simulator case runs, its first `limit` calls of K3
-    (``fe.frontend_planes``) and of K1 (``ldpc_decoder.decode``) are held
-    against the plain versions on the same inputs: the path's own grids,
-    and its rate-recovered, HARQ-combined LLRs at the case's iteration
-    count.  The plain versions run in PyTorch, so the check adds no launch.
-    K3 within K3_TOL of max|plain|, K1 bit-equal in bits and ok flags;
-    `held` collects per kernel the calls held and the largest error,
-    `lines` a line per call held (the case's own output is captured)."""
+    (``fe.frontend_planes``) and of each K1 variant of `kernels`
+    (``ldpc_decoder.decode``) are held against the plain versions on the
+    same inputs: the path's own grids, and its rate-recovered, HARQ-combined
+    LLRs at the case's iteration count.  The plain versions run in PyTorch,
+    so the check adds no launch.  K3 within K3_TOL of max|plain|, K1
+    bit-equal in bits and ok flags; `held` collects per kernel the calls
+    held and the largest error, `lines` a line per call held (the case's
+    own output is captured)."""
     k3, k1 = fe.frontend_planes, ldpc_decoder.decode
-    n = {"pusch_frontend": 0, "layered_f32": 0}
+    n = dict.fromkeys(kernels, 0)
 
     def k3_held(cfg, re_grid):
         planes = k3(cfg, re_grid)
-        if n["pusch_frontend"] < limit:
+        if n.get("pusch_frontend", limit) < limit:
             n["pusch_frontend"] += 1
             tag = (f"{cid} call {n['pusch_frontend']}: mu={cfg.mu} {cfg.n_prb} PRB "
                    f"{cfg.n_layers}x{cfg.n_rx} Qm={cfg.qm_rate[0]} window {cfg.chest_window} "
@@ -2390,6 +2414,76 @@ def phase_slice13(dev, gen, card: str) -> dict:
     return {"launches": launches, "held": held}
 
 
+# ---- phase 14: multi-device (parallel/) ----
+
+PHASE14_MAX_WORLD = 8
+PHASE14_KERNELS = ("pusch_frontend", "layered_f32", "flooding_f32")
+# the launches of each dry-run phase on a rank: dp's two HARQ rounds through
+# pusch_rx (K3, K1 layered); sp's one decode (K1 flooding; none outside its
+# mesh); dp x cb's frontend and decode
+PHASE14_LAUNCHES = {"dp": {"pusch_frontend": 2, "layered_f32": 2, "flooding_f32": 0},
+                    "sp": {"pusch_frontend": 0, "layered_f32": 0, "flooding_f32": 1},
+                    "dpcb": {"pusch_frontend": 1, "layered_f32": 0, "flooding_f32": 1}}
+
+
+def _phase14_rank() -> dict:
+    """One rank of phase 14 (in its own process, its card current, NCCL up):
+    the dry run's three phases at 273 PRB, the counts set to 0 before each
+    and read after it, the rank's first call of each kernel held against
+    its plain version; raises where a TB, a code block or a count is wrong."""
+    held, lines, launches, seconds = {}, [], {}, {}
+    with _held_to_plain("phase 14", held, lines, limit=1, kernels=PHASE14_KERNELS):
+        for name in dryrun.PHASES:
+            _reset_counts()
+            run = dryrun.run_phase(name)
+            launches[name] = dict(_counts(), flooding_f32=ldpc_decoder.launches["flooding_f32"])
+            seconds[name], out = run["seconds"], run["out"]
+            want = dict(PHASE14_LAUNCHES[name], **({"flooding_f32": 0} if out is None else {}))
+            if launches[name] != want:
+                raise AssertionError(f"phase 14 {name}: launches {launches[name]}, want {want}")
+            if name == "dp" and not (out["n_ok"] == torch.distributed.get_world_size()
+                                     and torch.equal(out["tb_bits"], out["tb_sent"])):
+                raise AssertionError(f"phase 14 dp: {out['line']}, or the TB differs from the sent")
+            if name == "sp" and out is not None and not (
+                    bool(out["tb_ok"].all()) and torch.equal(out["tb_bits"], out["tb_sent"])):
+                raise AssertionError(f"phase 14 sp: {out['line']}, or a TB differs from the sent")
+            if name == "dpcb" and not bool(out["cb_ok"].all()):
+                raise AssertionError(f"phase 14 dp x cb: {out['line']}")
+    if sorted(held) != sorted(PHASE14_KERNELS) or any(c != 1 for c, _ in held.values()):
+        raise AssertionError(f"phase 14: calls held {held}, want the first of each kernel")
+    dev = torch.cuda.current_device()
+    return {"card": f"cuda:{dev} {torch.cuda.get_device_name(dev)}", "launches": launches,
+            "seconds": seconds, "held": held, "lines": lines}
+
+
+def phase_slice14(card: str) -> dict:
+    """Phase 14: parallel/dryrun.py's dry run on every card (at most
+    PHASE14_MAX_WORLD), one rank each over NCCL (launch.spawn; the kernels
+    were built by phase 2, the ranks only load them)."""
+    t0 = time.perf_counter()
+    world = min(torch.cuda.device_count(), PHASE14_MAX_WORLD)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()
+    ranks = launch.spawn(_phase14_rank, world, "cuda")
+    launches = {k: sum(sum(r["launches"][p][k] for p in dryrun.PHASES) for r in ranks)
+                for k in PHASE14_KERNELS}
+    held = {k: (sum(r["held"][k][0] for r in ranks), max(r["held"][k][1] for r in ranks))
+            for k in PHASE14_KERNELS}
+    print(f"phase 14: {world} rank(s) over NCCL (rank 0 printed the dry run's lines); the "
+          f"cards (nvidia-smi): {'; '.join(smi)}")
+    for rank, r in enumerate(ranks):
+        secs = ", ".join(f"{p} {r['seconds'][p]:.2f} s" for p in dryrun.PHASES)
+        print(f"  rank {rank} on {r['card']}: {secs} (host clock, the card synchronized) on "
+              f"{card}; launches {r['launches']}")
+        for line in r["lines"]:
+            print(f"    {line}")
+    print(f"phase 14: the dp, sp and dp x cb dry run at 273 PRB through K3, K1 layered and K1 "
+          f"flooding on every rank, launches {launches}; {time.perf_counter() - t0:.1f} s "
+          f"on {card}")
+    return {"launches": launches, "held": held}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, device_ms, host_us, library_ms=None,
            **extra):
     src, replaces = KERNEL_SOURCES[name]
@@ -2417,6 +2511,7 @@ def main() -> None:
     phase_slice11(dev, gen, smi_line)
     slice12 = phase_slice12(dev, gen, smi_line)
     slice13 = phase_slice13(dev, gen, smi_line)
+    slice14 = phase_slice14(smi_line)
 
     kernels = []
     for name in ("layered_f32", "pusch_frontend"):   # slice 1: the main path's own
@@ -2442,14 +2537,20 @@ def main() -> None:
                               launches_phase13=slice13["launches"][name],
                               held_phase13=slice13["held"][name][0],
                               max_abs_err_phase13=slice13["held"][name][1],
+                              launches_phase14=slice14["launches"][name],
+                              held_phase14=slice14["held"][name][0],
+                              max_abs_err_phase14=slice14["held"][name][1],
                               **({"split": main_path["split"]} if name == "layered_f32" else {})))
     for name, row in decoder["rows"].items():
         if name == "layered_f32":
             continue
         r1, r0 = row[1], row[0]
+        p14 = ({} if name not in slice14["launches"] else dict(
+            launches_phase14=slice14["launches"][name], held_phase14=slice14["held"][name][0],
+            max_abs_err_phase14=slice14["held"][name][1]))
         kernels.append(_entry(name, decoder["launches"][name], r1["err"], r1["ms"],
                               r1["plain_ms"], r1["bound"], r1["device_ms"], r1["host_us"],
-                              mean_iters=r1["mean_iters"],
+                              mean_iters=r1["mean_iters"], **p14,
                               max_abs_err_check_every_0=r0["err"],
                               ms_check_every_0=r0["ms"],
                               plain_ms_check_every_0=r0["plain_ms"],

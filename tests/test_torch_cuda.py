@@ -1037,3 +1037,63 @@ def test_executor_defaults_to_the_card(cuda):
     ex = executor.SlotExecutor(lambda i: torch.ones(1, device="cuda") * i)
     assert ex.device.type == "cuda" and ex.stream is not None
     assert [float(r) for r in ex.run([()] * 3)] == [0.0, 1.0, 2.0]
+
+
+def _one_rank(calls, device="cuda"):
+    """launch.run_calls on a world of one rank (NCCL on card 0, or gloo);
+    the kernels are built here first, so the rank only loads them."""
+    from openairinterface5g_tpu_torch.ops import _cuda
+    from openairinterface5g_tpu_torch.parallel import launch
+    if device == "cuda":
+        _cuda.build()
+    return launch.spawn(launch.run_calls, 1, device, (calls,))[0]
+
+
+def test_collectives_over_nccl_at_world_1(cuda):
+    """The self pair's local copy, all_gather and all_to_all_single over NCCL
+    with one rank, complex tensors as real views."""
+    from openairinterface5g_tpu_torch.parallel import collectives as tc
+    from openairinterface5g_tpu_torch.parallel.launch import MESH, Call
+    g = torch.Generator().manual_seed(14)
+    x = torch.complex(torch.randn(1, 4, 6, generator=g), torch.randn(1, 4, 6, generator=g))
+    perm, gather, a2a, total = _one_rank([
+        Call(tc.ppermute, (1,), ("sp",), (x, MESH, "sp", [(0, 0)])),
+        Call(tc.all_gather, (1,), ("sp",), (x, MESH, "sp", 2, True)),
+        Call(tc.all_to_all, (1,), ("sp",), (x, MESH, "sp", 1, 2, True)),
+        Call(tc.psum, (1,), ("sp",), (torch.arange(5, dtype=torch.int32), MESH, "sp"))])
+    assert torch.equal(perm, x) and torch.equal(gather, x) and torch.equal(a2a, x)
+    assert torch.equal(total, torch.arange(5, dtype=torch.int32))
+
+
+def test_sharded_ldpc_decode_flooding_matches_plain(cuda):
+    """sharded_ldpc_decode's K1 flooding call on the card, bit-equal to the
+    plain version: BG1 Z=384 x 26, AWGN at a level some blocks fail."""
+    from openairinterface5g_tpu_torch.parallel import sharded
+    from openairinterface5g_tpu_torch.parallel.launch import MESH, Call, Shard
+    g = ldpc.build_graph(1, 384)
+    rng = np.random.default_rng(14)
+    info = torch.as_tensor(rng.integers(0, 2, (26, g.K)).astype(np.int8))
+    cw = ldpc.encode(g, info).float()
+    llr = (2.0 * ((1 - 2 * cw) + 0.85 * torch.as_tensor(rng.standard_normal(cw.shape),
+                                                         dtype=torch.float32)) / 0.85 ** 2)
+    llr[:, :2 * g.Z] = 0
+    bits, ok = _one_rank([Call(sharded.sharded_ldpc_decode, (1,), ("dp",),
+                               (MESH, g, Shard(llr)), {"n_iters": 6})])[0]
+    want = ldpc_decoder.decode_plain(g, llr, 6, schedule="flooding")
+    assert torch.equal(bits, want[0]) and torch.equal(ok, want[1])
+
+
+def test_subcarrier_sharded_rx_at_273_prb_matches_cpu(cuda):
+    """The sp receiver at the dry run's 273 PRB, 2 layers, on one card and on
+    one CPU rank: the same bits, CRC and code-block flags; the sent TBs."""
+    from openairinterface5g_tpu_torch.parallel import dryrun, pusch_sp
+    from openairinterface5g_tpu_torch.parallel.launch import MESH, Call
+    cfg = pusch.PuschConfig(**dryrun.SP_CFG)
+    tb = torch.as_tensor(np.random.default_rng(3).integers(0, 2, (2, cfg.tbs), dtype=np.int8))
+    grid = dryrun._clean_grid(cfg, tb)
+    call = [Call(pusch_sp.pusch_rx_subcarrier_sharded, (1,), ("sp",), (MESH, cfg, grid),
+                 {"n_iters": dryrun.N_ITERS})]
+    card, cpu = _one_rank(call)[0], _one_rank(call, "cpu")[0]
+    for k in ("tb_bits", "tb_ok", "cb_ok"):
+        assert torch.equal(card[k], cpu[k]), k
+    assert bool(card["tb_ok"].all()) and torch.equal(card["tb_bits"], tb)

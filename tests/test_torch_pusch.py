@@ -175,7 +175,9 @@ def test_port_imports_no_jax():
             "          'runtime.ru_l1_split', 'l3.rrc', 'l3.nas', 'l3.ngap', 'l3.gtpu', 'l3.f1ap',\n"
             "          'l3.e1ap', 'l3.sctp', 'l3.e2ap', 'l3.xnap', 'l3.x2ap', 'fronthaul.if5',\n"
             "          'fronthaul.oran', 'utils.confmod', 'utils.log', 'utils.ttrace', 'utils.itti',\n"
-            "          'utils.telnet', 'utils.vcd', 'utils.webscope', 'utils.profiling'):\n"
+            "          'utils.telnet', 'utils.vcd', 'utils.webscope', 'utils.profiling',\n"
+            "          'parallel.multihost', 'parallel.mesh', 'parallel.collectives',\n"
+            "          'parallel.launch', 'parallel.sharded', 'parallel.pusch_sp', 'parallel.dryrun'):\n"
             "    assert 'openairinterface5g_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
