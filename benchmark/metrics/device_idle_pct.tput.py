@@ -1,0 +1,6 @@
+"""Share of the traced stretch in which no operation ran on the device."""
+
+
+def read(run):
+    t = run.trace
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"]) if t and t["busy_s"] > 0 else None
