@@ -7,7 +7,8 @@ signature, (graph, llr, n_iters, **kw) -> (bits, ok):
                 reference schedule; stops once every code block passes
   'kernel'    — min-sum CUDA kernel (ops/ldpc_decoder.py; its plain PyTorch
                 version for CPU tensors), layered or flooding (`schedule`),
-                per-code-block early stop every `check_every` iterations
+                per-code-block early stop every `check_every` iterations;
+                with return_iters=True also each code block's iterations
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ def _decode_reference(graph, llr, n_iters=12, **kw):
 def _decode_kernel(graph, llr, n_iters=8, **kw):
     return ldpc_decoder.decode(graph, llr, n_iters=n_iters,
                                schedule=kw.get("schedule", "layered"),
-                               check_every=kw.get("check_every", 0))
+                               check_every=kw.get("check_every", 0),
+                               return_iters=kw.get("return_iters", False))
 
 
 _BACKENDS: dict[str, Callable] = {

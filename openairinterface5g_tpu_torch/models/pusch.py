@@ -47,6 +47,7 @@ from ..phy.ml_detector import ml_llrs_2layer
 from ..phy.ofdm import extract_from_grid, map_to_grid, ofdm_demodulate, ofdm_modulate
 from ..phy.scrambling import pusch_cinit, scramble, scramble_llrs
 from ..transport import compute_tbs, mcs_to_qm_rate
+from ..utils import profiling
 
 _DECODER_BACKENDS = ("reference", "kernel")
 _FRONTEND_BACKENDS = ("auto", "reference", "kernel")
@@ -410,10 +411,13 @@ def pusch_rx(cfg: PuschConfig, rx_samples: torch.Tensor, rv: int = 0,
     uci_cfg the decoded UCI: ack_bits (B, O_ack) and uci (per stream its
     bits and '<stream>_ok'); both None without uci_cfg.
     """
-    fp = cfg.fp
-    grid = ofdm_demodulate(fp, rx_samples, cfg.slot)    # (B, R, sym, fft)
-    return pusch_rx_grid(cfg, extract_from_grid(fp, grid), rv=rv, n_iters=n_iters,
-                         harq_buffers=harq_buffers, uci_cfg=uci_cfg)
+    with profiling.trace("models/pusch.py"):
+        fp = cfg.fp
+        with profiling.trace("phy/ofdm.py"):
+            grid = ofdm_demodulate(fp, rx_samples, cfg.slot)    # (B, R, sym, fft)
+            re_grid = extract_from_grid(fp, grid)
+        return pusch_rx_grid(cfg, re_grid, rv=rv, n_iters=n_iters,
+                             harq_buffers=harq_buffers, uci_cfg=uci_cfg)
 
 
 def _smooth(cfg: PuschConfig, hp: torch.Tensor) -> torch.Tensor:
@@ -614,7 +618,8 @@ def pusch_rx_grid(cfg: PuschConfig, re_grid: torch.Tensor, rv: int = 0,
     _check_ported(cfg)
     _check_branches(cfg, uci_cfg)
     if uci_cfg is None and not cfg.llr_quant_bits and _use_kernel_frontend(cfg, re_grid):
-        planes = fe.frontend_planes(cfg, re_grid)
+        with profiling.trace("ops/pusch_frontend.py"):
+            planes = fe.frontend_planes(cfg, re_grid)
         return pusch_decode_codeword(cfg, None, rv=rv, n_iters=n_iters,
                                      harq_buffers=harq_buffers, planes=planes)
     return pusch_decode_codeword(cfg, pusch_frontend(cfg, re_grid), rv=rv,
@@ -648,20 +653,34 @@ def pusch_decode_codeword(cfg: PuschConfig, llr_cw, rv: int = 0,
         # the same values; the kernel reads bf16 directly.
         src = (planes.to(torch.bfloat16)
                if cfg.decoder_backend == "kernel" and p.Z % 128 == 0 else planes)
-        stacked = rate_matching.fused_rate_match_rx_planes(
-            g, src, rv, es, qm, p.F, harq_buffer=harq_buffers, ncb=cfg.ncb())
+        with profiling.trace("coding/rate_recovery"):
+            stacked = rate_matching.fused_rate_match_rx_planes(
+                g, src, rv, es, qm, p.F, harq_buffer=harq_buffers, ncb=cfg.ncb())
         llr_cw = planes
     else:
-        stacked = rate_matching.fused_rate_match_rx(
-            g, llr_cw, rv, es, qm, p.F, harq_buffer=harq_buffers, ncb=cfg.ncb())
-    bits_all, ok_all = ldpc_decoder(cfg.decoder_backend)(
-        g, stacked.reshape(B * p.C, -1), n_iters=n_iters,
-        check_every=cfg.decoder_check_every)
-    tb_with_crc = segmentation.desegment_tb(bits_all.reshape(B, p.C, -1), p)
+        with profiling.trace("coding/rate_recovery"):
+            stacked = rate_matching.fused_rate_match_rx(
+                g, llr_cw, rv, es, qm, p.F, harq_buffer=harq_buffers, ncb=cfg.ncb())
+    decode, llr_cbs = ldpc_decoder(cfg.decoder_backend), stacked.reshape(B * p.C, -1)
+    with profiling.trace("coding/decode"):
+        if cfg.decoder_backend == "kernel" and profiling.active():
+            # K1's own iterations per code block, kept on the device unread
+            bits_all, ok_all, iters = decode(g, llr_cbs, n_iters=n_iters,
+                                             check_every=cfg.decoder_check_every,
+                                             return_iters=True)
+            profiling.count("coding/decode:iters", iters)
+        else:
+            bits_all, ok_all = decode(g, llr_cbs, n_iters=n_iters,
+                                      check_every=cfg.decoder_check_every)
+    cbs = bits_all.reshape(B, p.C, -1)
+    with profiling.trace("coding/desegment"):
+        tb_with_crc = segmentation.desegment_tb(cbs, p)
+    with profiling.trace("coding/crc"):
+        tb_ok = crc_ok(tb_with_crc, crc_name)
     Lc = CRC_POLYS[crc_name][0]
     return {
         "tb_bits": tb_with_crc[..., :-Lc],
-        "tb_ok": crc_ok(tb_with_crc, crc_name),
+        "tb_ok": tb_ok,
         "cb_ok": ok_all.reshape(B, p.C),
         "llrs": llr_cw,
         "harq_buffers": stacked,

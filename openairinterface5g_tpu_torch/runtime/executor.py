@@ -12,7 +12,16 @@ on.
 
 A host read inside step_fn (``bool(t)``, ``.item()``, ``.cpu()``) waits
 for the device there and turns the pipeline into a depth-0 one without
-any error; the dispatch times show it (dispatch_us near complete_us).
+any error; the dispatch times show it (dispatch_us near complete_us), and
+with the tracer on (utils/profiling.py) so does its in-flight counter,
+which the benchmark reads as ``inflight_calls.mean``: the earlier calls
+still running on the card at each hand-in, 0 at depth 0.
+
+Traced, a call's hand-in is the span ``runtime/executor.py:dispatch``; its
+retire is ``runtime/executor.py:wait`` (the wait on its event) and then
+``runtime/executor.py`` (``to_host``); the counter
+``runtime/executor.py:held`` is the seconds from the end of its dispatch to
+the start of its retire.
 
 The per-slot timing ring mirrors rt_L1_profiling (nr-gnb.c:162) and
 feeds the same style of jitter statistics the reference prints via
@@ -29,6 +38,7 @@ from typing import Any, Callable
 import torch
 
 from ..sim import resolve_device
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -83,8 +93,12 @@ class SlotExecutor:
         if self.stream is not None:     # the inputs' producers come first
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         for i, args in enumerate(inputs):
+            if profiling.active():
+                profiling.at_call(i)
+                profiling.count("runtime/executor.py:inflight",
+                                sum(d is not None and not d.query() for *_, d in inflight))
             t0 = time.perf_counter()
-            with self._on_stream():
+            with self._on_stream(), profiling.trace("runtime/executor.py:dispatch"):
                 out = self.step_fn(i, *args)
                 done = None
                 if self.stream is not None:
@@ -100,9 +114,14 @@ class SlotExecutor:
 
     def _retire(self, item):
         i, t0, t1, out, done = item
+        if profiling.active():
+            profiling.at_call(i)
+            profiling.count("runtime/executor.py:held", time.perf_counter() - t1)
         if done is not None:
-            done.synchronize()
-        out = to_host(out)
+            with profiling.trace("runtime/executor.py:wait"):
+                done.synchronize()
+        with profiling.trace("runtime/executor.py"):
+            out = to_host(out)
         t2 = time.perf_counter()
         miss = (self.slot_duration_s is not None
                 and (t2 - t0) > self.slot_duration_s * (self.depth + 1))

@@ -1032,6 +1032,87 @@ def test_profiling_on_the_card(cuda, tmp_path):
     assert torch.cuda.current_stream(cuda).query()
 
 
+def test_program_spans_on_the_card(cuda, monkeypatch):
+    """The tracer of utils/profiling.py in a traced executor run at
+    nr40-pusch-2l2r-mcs16.clean32's shape (32 slots a call, depth 2, 23
+    dB): benchmark/tracing.reduce gives the same layer_s keys with the
+    program's spans and the benchmark's wrappers, with the wrappers alone
+    and with the program's spans alone; K1 iterates once a code block; the
+    in-flight mean lies within the depth; every new reader reads."""
+    import contextlib
+    import types
+
+    from benchmark import harness, load, nr, spec, tracing
+    from openairinterface5g_tpu_torch.runtime.executor import SlotExecutor
+    from openairinterface5g_tpu_torch.utils import profiling
+    cell = spec.resolve("nr40-pusch-2l2r-mcs16.clean32")
+    p = nr.Pusch.from_config(cell.config)
+    pool, _ = load.make_pool(p, cell.traffic, 2**31 + 17, cuda)
+    steps = harness.Steps(harness.program_config(cell.config), cell.config["n_iters"], [])
+    ex = SlotExecutor(steps, depth=cell.traffic["depth"], device=cuda)
+    ex.run([(a,) for a in pool], collect=False)
+
+    def traced(wrappers: bool, program: bool) -> dict:
+        profiling.reset()
+        out: dict = {}
+        with contextlib.ExitStack() as stack:
+            if not program:       # the capture no longer switches the tracer on
+                stack.enter_context(monkeypatch.context()).setattr(
+                    profiling, "_torch_profiler", types.SimpleNamespace(_is_profiler_enabled=False))
+            if wrappers:
+                stack.enter_context(tracing.layer_spans())
+            stack.enter_context(tracing.captured(out))
+            ex.run([(a,) for a in pool * 2], collect=False)
+        return out
+
+    both = traced(True, True)
+    assert traced(True, False)["layer_s"].keys() == both["layer_s"].keys()
+    alone = traced(False, True)
+    assert alone["layer_s"].keys() == both["layer_s"].keys()
+    assert tracing.OUTSIDE not in alone["layer_s"]
+    run = harness.Run(p=p, traffic=cell.traffic, setup_s=0.0)
+    got = {name: spec.reader(name)(run)
+           for name in ("host_self_ms.ofdm", "host_self_ms.frontend", "host_self_ms.coding",
+                        "host_self_ms.pusch", "retire_wait_ms", "retire_copy_ms",
+                        "inflight_calls.mean", "k1_iters_per_cb", "retire_held_ms.p95")}
+    assert got.pop("k1_iters_per_cb") == 1.0
+    assert 0 <= got.pop("inflight_calls.mean") <= cell.traffic["depth"]
+    assert all(v > 0 for v in got.values()), got
+    profiling.reset()
+
+
+def test_inflight_counter_on_the_card(cuda):
+    """The executor's in-flight counter: steps that keep the card busy
+    longer than the host takes to hand them in read the depth once the
+    pipeline has filled; a host read inside the step (the depth-0 fault
+    the executor's docstring warns of) reads 0 at every hand-in."""
+    from openairinterface5g_tpu_torch.runtime.executor import SlotExecutor
+    from openairinterface5g_tpu_torch.utils import profiling
+    x = torch.randn(2048, 2048, device=cuda)
+
+    def busy(i, read=False):
+        y = x
+        for _ in range(8):
+            y = y @ x / 2048
+        return float(y.sum()) if read else y.sum()
+
+    counts = []
+    for read in (False, True):
+        ex = SlotExecutor(lambda i: busy(i, read), depth=2, device=cuda)
+        ex.run([()] * 2, collect=False)
+        profiling.reset()
+        profiling.enable()
+        try:
+            ex.run([()] * 10, collect=False)
+        finally:
+            profiling.disable()
+        got = profiling.snapshot()["counts"]["runtime/executor.py:inflight"]
+        counts.append([r.total for r in got])
+    profiling.reset()
+    assert counts[0][:2] == [0.0, 1.0] and counts[0][2:] == [2.0] * 8, counts[0]
+    assert counts[1] == [0.0] * 10
+
+
 def test_executor_defaults_to_the_card(cuda):
     from openairinterface5g_tpu_torch.runtime import executor
     ex = executor.SlotExecutor(lambda i: torch.ones(1, device="cuda") * i)
