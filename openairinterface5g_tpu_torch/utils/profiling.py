@@ -34,12 +34,15 @@ benchmark's per-layer metrics, PERF.md section 3):
                                                               host_self_ms.coding
   runtime/executor.py:dispatch step_fn and its event          the call's identity
   runtime/executor.py:wait     the retire's wait for the card retire_wait_ms
-  runtime/executor.py          the retire's copy to the host  retire_copy_ms
+  runtime/executor.py          the copy to the host: enqueued at the hand-in
+                               on the card, at the retire on the CPU  retire_copy_ms
   counter coding/decode:iters  K1's (B*C,) iterations         k1_iters_per_cb
   counter runtime/executor.py:inflight  earlier calls still on the card at a
                                hand-in                        inflight_calls.mean
   counter runtime/executor.py:held  seconds from a call's dispatch to its
                                retire                         retire_held_ms.p95
+  counter runtime/executor.py:pinned  the share of a call's result bytes
+                               in pinned host memory          retire_pinned_share
 """
 from __future__ import annotations
 

@@ -906,6 +906,52 @@ def test_executor_at_depth_2_on_the_card(cuda):
     assert len(ex.stats) == 8 and all(s.dispatch_us < s.complete_us for s in ex.stats)
 
 
+def test_executor_results_in_pinned_memory_on_the_card(cuda, monkeypatch):
+    """On the card a call's results are copied at its hand-in into pinned
+    host memory: under collect=True every result is its own pinned tensor,
+    equal to a synchronous copy of the same step, in order; under
+    collect=False run() returns None and no retired result outlives its
+    retire, so the pinned blocks go back to the allocator's cache."""
+    import weakref
+
+    from openairinterface5g_tpu_torch.runtime import executor
+    depth, calls = 2, 12
+    base = torch.arange(3 << 20, device=cuda)
+
+    def step(i):
+        torch.cuda._sleep(1 << 20)         # the card still busy at the next hand-in
+        bits = ((base * 7919 + i * 104729) % 251 % 2).to(torch.int8)
+        return {"i": i, "bits": bits, "ok": bits[:64].bool()}
+
+    got = executor.SlotExecutor(step, depth=depth, device=cuda).run([()] * calls)
+    assert [r["i"] for r in got] == list(range(calls))
+    host = [t for r in got for t in (r["bits"], r["ok"])]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    assert len({t.untyped_storage().data_ptr() for t in host}) == len(host)
+    for i, r in enumerate(got):
+        want = step(i)
+        assert torch.equal(r["bits"], want["bits"].cpu()) and torch.equal(r["ok"], want["ok"].cpu())
+    del got, host
+
+    refs = []
+    real = executor.to_host
+
+    def to_host(out, **kw):
+        res = real(out, **kw)
+        refs.append(weakref.ref(res["bits"]))
+        return res
+
+    def watched(i):       # calls 0 .. i - 1 - depth have retired at call i's hand-in
+        assert all(r() is None for r in refs[:max(0, i - depth)]), i
+        return step(i)
+
+    monkeypatch.setattr(executor, "to_host", to_host)
+    ex = executor.SlotExecutor(watched, depth=depth, device=cuda)
+    assert ex.run([()] * calls, collect=False) is None
+    assert len(refs) == calls and all(r() is None for r in refs)
+    assert [s.slot for s in ex.stats] == list(range(calls))
+
+
 def test_softmodem_on_the_card_matches_cpu(cuda):
     """The softmodem at tests/test_runtime.py's loop arguments through K1
     (--backend kernel) and K3: the CPU run's UL TB ok list."""
@@ -1037,8 +1083,10 @@ def test_program_spans_on_the_card(cuda, monkeypatch):
     nr40-pusch-2l2r-mcs16.clean32's shape (32 slots a call, depth 2, 23
     dB): benchmark/tracing.reduce gives the same layer_s keys with the
     program's spans and the benchmark's wrappers, with the wrappers alone
-    and with the program's spans alone; K1 iterates once a code block; the
-    in-flight mean lies within the depth; every new reader reads."""
+    and with the program's spans alone, the copies to the host under
+    runtime/executor.py; K1 iterates once a code block; the in-flight mean
+    lies within the depth; every result lands in pinned memory; every new
+    reader reads."""
     import contextlib
     import types
 
@@ -1074,8 +1122,11 @@ def test_program_spans_on_the_card(cuda, monkeypatch):
     got = {name: spec.reader(name)(run)
            for name in ("host_self_ms.ofdm", "host_self_ms.frontend", "host_self_ms.coding",
                         "host_self_ms.pusch", "retire_wait_ms", "retire_copy_ms",
-                        "inflight_calls.mean", "k1_iters_per_cb", "retire_held_ms.p95")}
+                        "inflight_calls.mean", "k1_iters_per_cb", "retire_held_ms.p95",
+                        "retire_pinned_share")}
     assert got.pop("k1_iters_per_cb") == 1.0
+    assert got.pop("retire_pinned_share") == 1.0
+    assert both["layer_s"]["runtime/executor.py"] > 0 and alone["layer_s"]["runtime/executor.py"] > 0
     assert 0 <= got.pop("inflight_calls.mean") <= cell.traffic["depth"]
     assert all(v > 0 for v in got.values()), got
     profiling.reset()

@@ -47,6 +47,7 @@ from openairinterface5g_tpu_torch.models import ue as tue
 from openairinterface5g_tpu_torch.runtime import (connected_ota, executor, ra_ota,
                                                   ru_l1_split, scheduler, softmodem, tdd,
                                                   ue_softmodem)
+from openairinterface5g_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)   # one intra-op thread: the test workers share the host's cores
 
@@ -572,6 +573,37 @@ def test_executor_on_the_cpu():
     assert all(0 <= s.dispatch_us <= s.complete_us for s in ex.stats)
     assert "over 10 slots" in ex.report()
     assert ex.run([(torch.zeros(1),)], collect=False) is None
+
+
+def test_executor_on_the_cpu_copies_at_the_retire():
+    """With device="cpu" the retire makes the host copy as before: results
+    equal to the step's own, in pageable memory, one SlotStats a slot in
+    order under collect=True and False alike, and a pinned share of 0 for
+    every call while the tracer is on."""
+    def step(i, x):
+        return {"i": i, "bits": (x + i).to(torch.int8), "ok": [x[:4] > i]}
+    xs = [(torch.arange(4096) % 7,) for _ in range(9)]
+    ex = executor.SlotExecutor(step, depth=2, device="cpu")
+    got = ex.run(xs)
+    assert [r["i"] for r in got] == list(range(9))
+    for i, r in enumerate(got):
+        want = step(i, *xs[i])
+        assert torch.equal(r["bits"], want["bits"]) and torch.equal(r["ok"][0], want["ok"][0])
+        assert not r["bits"].is_pinned() and not r["ok"][0].is_pinned()
+    kept = [(s.slot, s.deadline_miss) for s in ex.stats]
+    assert kept == [(i, False) for i in range(9)]
+    ex.stats.clear()
+    profiling.reset()
+    profiling.enable()
+    try:
+        assert ex.run(xs, collect=False) is None
+    finally:
+        profiling.disable()
+    pinned = profiling.snapshot()["counts"]["runtime/executor.py:pinned"]
+    profiling.reset()
+    assert [(s.slot, s.deadline_miss) for s in ex.stats] == kept
+    assert all(0 <= s.dispatch_us <= s.complete_us for s in ex.stats)
+    assert [(r.call, r.total, r.n) for r in pinned] == [(i, 0.0, 1) for i in range(9)]
 
 
 @pytest.mark.parametrize("budget", [None, 500e-6])
