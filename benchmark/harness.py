@@ -2,14 +2,15 @@
 
 The window drives the program's slot executor
 (``openairinterface5g_tpu_torch.runtime.executor.SlotExecutor.run``), every
-step one call of ``models.pusch.pusch_rx`` over a call's slots, and hands
-back to the host what a MAC takes: ``tb_bits``, ``tb_ok`` and ``cb_ok``.
-The outputs of a few calls drawn from the seed (their LLRs too) stay on the
-device until the window has closed; the check reads them then.
+step one call of the program path that the cell's configuration names
+(``benchmark/paths/<path>.py``: the program call over a call's slots, and
+what goes back to the host).  The outputs of a few calls drawn from the
+seed stay on the device until the window has closed; the path's check
+reads them then.
 
 With ``trace`` the run's window is two stretches: first the untraced one
 (host dispatch, latency, lag), then a short one under ``torch.profiler``
-with the layer spans of ``tracing``.
+with the path's layer spans.
 """
 from __future__ import annotations
 
@@ -17,57 +18,27 @@ import dataclasses
 import subprocess
 import sys
 import time
+from types import ModuleType
 
 import numpy as np
 import torch
 
-from . import check, load, nr, spec, tracing, workcount
+from . import load, spec, tracing
+from .paths import pusch_rx
 
 SAMPLED = 3              # calls whose outputs the check keeps
 WARM_CALLS = 6           # calls before the window, every shape of the cell
 TRACED_PASSES = 4        # passes over the pool in the traced stretch
 TRACED_SHARE = 0.75      # of the window, the untraced stretch in a traced run
-# fields of the configuration file that PuschConfig takes as they are
-PROGRAM_FIELDS = ("mu", "n_prb", "mcs", "mcs_table", "n_layers", "n_rx", "n_symbols",
-                  "rnti", "n_id", "slot", "chest_window", "decoder_backend",
-                  "frontend_backend", "decoder_check_every")
-
-
-def program_config(config: dict):
-    from openairinterface5g_tpu_torch.models.pusch import PuschConfig
-    kw = {k: config[k] for k in PROGRAM_FIELDS}
-    return PuschConfig(dmrs_symbols=tuple(config["dmrs_symbols"]), **kw)
-
-
-class Steps:
-    """The executor's step and what the window keeps of it."""
-
-    def __init__(self, cfg, n_iters: int, sampled: list):
-        from openairinterface5g_tpu_torch.models import pusch
-        self.pusch, self.cfg, self.n_iters = pusch, cfg, n_iters
-        self.sampled = set(sampled)
-        self.counting = False
-        self.n = 0              # calls of the window so far
-        self.kept: dict = {}
-        self.tb_ok: list = []
-        self.cb_ok: list = []
-
-    def __call__(self, i: int, rx: torch.Tensor) -> dict:
-        out = self.pusch.pusch_rx(self.cfg, rx, n_iters=self.n_iters)
-        res = {"tb_bits": out["tb_bits"], "tb_ok": out["tb_ok"], "cb_ok": out["cb_ok"]}
-        if self.counting:
-            self.tb_ok.append(out["tb_ok"])
-            self.cb_ok.append(out["cb_ok"])
-            if self.n in self.sampled:
-                self.kept[self.n] = dict(res, llrs=out["llrs"])
-            self.n += 1
-        return res
+# the uplink receiver's step and configuration under their names from
+# before benchmark/paths/, for the port's own tests that drive them
+Steps, program_config = pusch_rx.Steps, pusch_rx.program_config
 
 
 @dataclasses.dataclass
 class Run:
     """What a metric's reader reads."""
-    p: nr.Pusch
+    p: object                       # the path's reference_config
     traffic: dict
     setup_s: float
     window_s: float = 0.0           # the untraced stretch
@@ -81,6 +52,7 @@ class Run:
     iters: dict = dataclasses.field(default_factory=dict)   # pool index -> (C slots,) iterations
     power_limit: str = "not read"
     notes: dict = dataclasses.field(default_factory=dict)
+    path: ModuleType | None = None  # the cell's program path
 
     @property
     def slots_per_call(self) -> int:
@@ -92,7 +64,7 @@ class Run:
                 for d, h, c in zip(self.due, self.handed, self.complete_us)]
 
 
-def _window(ex, steps: Steps, pool: list, traffic: dict, seconds: float, run: Run) -> None:
+def _window(ex, steps, pool: list, traffic: dict, seconds: float, run: Run) -> None:
     """One stretch of the window on the executor, its stats added to `run`."""
     ex.stats.clear()
     start = steps.n
@@ -110,7 +82,7 @@ def _window(ex, steps: Steps, pool: list, traffic: dict, seconds: float, run: Ru
     run.due, run.handed = due, handed
 
 
-def _traced(ex, steps: Steps, pool: list, traffic: dict, run: Run) -> None:
+def _traced(ex, steps, pool: list, traffic: dict, run: Run) -> None:
     """The traced stretch: TRACED_PASSES passes over the pool, at the
     cell's own pace."""
     n = TRACED_PASSES * len(pool)
@@ -121,7 +93,7 @@ def _traced(ex, steps: Steps, pool: list, traffic: dict, run: Run) -> None:
     else:
         inputs = (a for _, a in zip(range(n), load.closed(pool, 1e9, start)))
     out: dict = {}
-    with tracing.layer_spans(), tracing.captured(out):
+    with run.path.layer_spans(), tracing.captured(out):
         ex.run(inputs, collect=False)
     run.trace = out
     run.traced_calls = [(start + k) % len(pool) for k in range(steps.n - start)]
@@ -142,18 +114,18 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     """The result line of one run (a dict), with "checks" last."""
     from openairinterface5g_tpu_torch.runtime.executor import SlotExecutor
 
-    traffic = cell.traffic
-    p = nr.Pusch.from_config(cell.config)
-    cfg = program_config(cell.config)
-    pool, blocks = load.make_pool(p, traffic, seed, device)
+    traffic, path = cell.traffic, spec.path(cell.path, root)
+    p = path.reference_config(cell.config)
+    cfg = path.program_config(cell.config)
+    pool, truth = path.make_pool(p, traffic, seed, device)
     sampled = load.sampled_calls(seed, len(pool), SAMPLED)
-    steps = Steps(cfg, cell.config["n_iters"], sampled)
+    steps = path.steps(cfg, cell.config, sampled)
     ex = SlotExecutor(steps, depth=traffic["depth"], device=device)
     ex.run([(pool[i % len(pool)],) for i in range(WARM_CALLS)], collect=False)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    run = Run(p=p, traffic=traffic, setup_s=time.perf_counter() - t_start)
+    run = Run(p=p, traffic=traffic, setup_s=time.perf_counter() - t_start, path=path)
 
     steps.counting = True
     _window(ex, steps, pool, traffic, seconds * (TRACED_SHARE if trace else 1.0), run)
@@ -167,20 +139,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     else:
         peak, kind = 0, "cpu"
 
-    refs: dict = {}
-    if trace:                       # the iterations each call's code blocks need
-        for j in sorted(set(run.traced_calls)):
-            refs[j] = check.reference(p, pool[j])
-            run.iters[j] = refs[j]["iters"].reshape(-1).tolist()
-    numbers, attempted, failed = check.judge(
-        p, sampled, steps.kept, pool, blocks, steps.tb_ok, steps.cb_ok, cell.config["check"], refs)
+    numbers, attempted, failed = path.verdict(run, steps, pool, truth, sampled,
+                                              cell.config["check"])
 
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         got = spec.reader(m["name"], root)(run)
         if got is not None:
             metrics[m["name"]] = {"value": got, "unit": m["unit"]}
-    result = {"correct": check.passed(numbers), "attempted": attempted, "failed": failed,
+    result = {"correct": passed(numbers), "attempted": attempted, "failed": failed,
               "metrics": metrics,
               "device": {"platform": "gpu" if device.type == "cuda" else device.type,
                          "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}}
@@ -205,20 +172,8 @@ def found_jax() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(JAX_NAMES))
 
 
-def work_of(run: Run, layer: str) -> tuple:
-    """(least seconds, bound) of the work a layer did over the traced calls."""
-    p, B = run.p, run.slots_per_call
-    if layer == "decode":
-        g = nr.graph(p.seg.bg, p.seg.Z)
-        iters = [i for j in run.traced_calls for i in run.iters[j]]
-        n_bytes, n_ops = workcount.decoder_work(g.Z, g.kc, g.rows, g.edges, g.cols, 2,
-                                                iters, p.check_every)
-    else:
-        n = len(run.traced_calls) * B
-        n_bytes = workcount.frontend_bytes(n, p.n_rx, p.n_sc, p.G)
-        n_ops = workcount.frontend_ops(n, p.n_layers, p.n_rx, p.qm, len(p.dmrs_symbols),
-                                       len(p.data_symbols), p.chest_window, p.n_prb)
-    return workcount.least_s(n_bytes, n_ops)
+def passed(numbers: dict) -> bool:
+    return all(v <= lim for v, lim in numbers.values())
 
 
 def percentile(values: list, q: float) -> float | None:

@@ -1,20 +1,18 @@
-"""The benchmark's one load generator, driven by a traffic file.
+"""The benchmark's load generator, driven by a traffic file.
 
 A traffic file (``benchmark/traffic/<name>.json``) gives:
 
-- ``slots_per_call``: slots the program receives in one call;
-- ``pool_calls``: distinct calls made in set-up; the window cycles through
-  them, so every call reads samples no cache holds;
+- ``slots_per_call``: slots the program takes in one call;
+- ``pool_calls``: distinct calls made in set-up (by the cell's path,
+  ``benchmark/paths/<path>.py::make_pool``, from the run's seed on the
+  device, with the path's own keys of the file, such as ``pusch_rx``'s
+  ``channel``); the window cycles through them, so every call reads data
+  no cache holds;
 - ``depth``: calls in flight in the slot executor;
-- ``channel``: ``cross`` (each receive antenna hears its layer, repeated
-  over the antennas, plus ``cross`` times the layer of the antenna in
-  mirror position) and ``noise_std`` (per real dimension of a sample);
 - ``loop``: ``closed`` (the next call as soon as the executor takes it) or
   ``open`` (one call due every ``period_ms``, whatever came back).
 
-Everything random comes from one ``torch.Generator`` on the device, seeded
-with the run's seed: the same seed gives the same transport blocks, noise
-and sampled calls.
+The same seed gives the same pool and the same sampled calls.
 """
 from __future__ import annotations
 
@@ -22,36 +20,7 @@ import random
 import time
 from typing import Iterator
 
-import torch
-
-from . import nr
-
-
-def channel_matrix(n_rx: int, n_layers: int, cross: float) -> torch.Tensor:
-    """(n_rx, n_layers): antenna r hears layer r mod L, and `cross` times
-    the layer that antenna n_rx - 1 - r hears."""
-    e = torch.zeros((n_rx, n_layers))
-    e[torch.arange(n_rx), torch.arange(n_rx) % n_layers] = 1.0
-    return e + cross * e.flip(0)
-
-
-def make_pool(p: nr.Pusch, traffic: dict, seed: int, device: torch.device):
-    """(pool of (slots, n_rx, samples) complex64 calls, their (slots, A)
-    transport blocks), made on the device in one pass per call."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    B, ch = traffic["slots_per_call"], traffic["channel"]
-    h = channel_matrix(p.n_rx, p.n_layers, ch["cross"]).to(device=device, dtype=torch.complex64)
-    pool, blocks = [], []
-    for _ in range(traffic["pool_calls"]):
-        tb = torch.randint(0, 2, (B, p.A), generator=gen, device=device, dtype=torch.int8)
-        tx = nr.transmit(p, tb)                                        # (B, L, S)
-        rx = torch.einsum("rl,bls->brs", h, tx)
-        noise = torch.randn((2, *rx.shape), generator=gen, device=device)
-        rx = rx + ch["noise_std"] * torch.complex(noise[0], noise[1])
-        pool.append(rx.contiguous())
-        blocks.append(tb)
-    return pool, blocks
+from .paths.pusch_rx import make_pool  # noqa: F401  the name from before benchmark/paths/
 
 
 def sampled_calls(seed: int, pool_calls: int, n: int) -> list:

@@ -1,5 +1,7 @@
-"""Device time of the OFDM demodulation (cuFFT and the grid's extraction)
-per slot over the traced stretch."""
+"""Device time per slot of the OFDM layer (span phy/ofdm.py): the
+demodulation in an RX cell (cuFFT and the grid's extraction), the
+modulation in a TX cell (the mapping to the FFT grid and the inverse
+cuFFT with the cyclic prefixes), over the traced stretch."""
 
 
 def read(run):

@@ -1,6 +1,6 @@
 """Device time per slot of the slot executor's retire (``to_host``): the
-copies of each call's tb_bits, tb_ok and cb_ok to the host, over the
-traced stretch."""
+copies of each call's results to the host (tb_bits, tb_ok and cb_ok in an
+RX cell, the waveform in a TX cell), over the traced stretch."""
 
 
 def read(run):

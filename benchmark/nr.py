@@ -1,4 +1,5 @@
-"""The benchmark's plain reference of the NR uplink shared channel.
+"""The benchmark's plain reference of the NR uplink and downlink shared
+channels.
 
 TS 38.211 (numerology, Gold sequences, DMRS, QAM, OFDM), TS 38.212 (CRC,
 segmentation, LDPC, rate matching) and TS 38.214 (MCS and TBS) written out
@@ -8,15 +9,26 @@ with no data beside it in one or more single symbols (additional
 positions, as ``dmrs-AdditionalPosition`` pos1 gives symbols 2 and 11), 1 or
 2 layers on ports 0 and 1, MCS table 1, redundancy version 0, no LBRM.
 
+The downlink shared channel of this family (PDSCH, one codeword, q = 0,
+n_SCID = 0, the DMRS without power boost as one CDM group without data
+gives) is block for block the uplink one: TS 38.211 §7.3.1.1's scrambling
+(c_init = n_RNTI 2^15 + q 2^14 + n_ID) and §7.4.1.1's DMRS sequence equal
+§6.3.1.1's and §6.4.1.1.1.1's CP-OFDM formulas written here, and §7.3.1.3's
+layer mapping and §7.3.1.5's mapping to resource elements equal the
+uplink's.  So one ``Pusch`` reads both families' files (a transmitter's
+file need not carry the receiver's fields), and ``transmit`` is also the
+reference of the gNB's transmitter.
+
 It imports nothing of the program under test and reads nothing it made
-at run time.  The transmitter (``transmit``) makes the benchmark's
-waveforms; the receiver (``frontend_llrs``, ``recover``, ``decode``,
-``desegment``) judges what the program received.  The receiver's estimator
-and detector are the ones the program states (LS on the pilots averaged
-over the DMRS symbols, the frequency OCC split of two ports, a moving
-average with replicate padding, linear interpolation of the comb, MRC or
-the closed-form 2-layer MMSE, max-log LLRs), so the two compare number for
-number.  ``frontend_llrs`` rounds its intermediate values with ``q``:
+at run time.  The transmitter (``transmit``: ``codeword_bits``, then
+``slot_grid``, then ``ofdm_modulate``) makes the uplink cells' waveforms
+and judges the downlink cells' output; the receiver (``frontend_llrs``,
+``recover``, ``decode``, ``desegment``) judges what the program received.
+The receiver's estimator and detector are the ones the program states
+(LS on the pilots averaged over the DMRS symbols, the frequency OCC split
+of two ports, a moving average with replicate padding, linear
+interpolation of the comb, MRC or the closed-form 2-layer MMSE, max-log
+LLRs), so the two compare number for number.  ``frontend_llrs`` rounds its intermediate values with ``q``:
 ``exact`` for the reference, ``bf16`` for the control.
 
 Bits are 0/1; an LLR > 0 means bit 0.
@@ -101,26 +113,27 @@ class Pusch:
     n_prb: int
     mcs: int
     n_layers: int
-    n_rx: int
     n_symbols: int
     dmrs_symbols: tuple
     rnti: int
     n_id: int
     slot: int
-    chest_window: int
-    n_iters: int
-    check_every: int
+    # the receiver's; a transmitter's file leaves them out
+    n_rx: int = 0
+    chest_window: int = 1
+    n_iters: int = 0
+    check_every: int = 0
 
     @classmethod
     def from_config(cls, c: dict) -> "Pusch":
         if c.get("mcs_table", 1) != 1 or not c["dmrs_symbols"] or c["n_layers"] > 2:
             raise ValueError("the reference covers MCS table 1, single-symbol DMRS, 1-2 layers")
+        rx = {f: c[k] for f, k in (("n_rx", "n_rx"), ("chest_window", "chest_window"),
+                                   ("n_iters", "n_iters"), ("check_every", "decoder_check_every"))
+              if k in c}
         return cls(mu=c["mu"], n_prb=c["n_prb"], mcs=c["mcs"], n_layers=c["n_layers"],
-                   n_rx=c["n_rx"], n_symbols=c["n_symbols"],
-                   dmrs_symbols=tuple(sorted(c["dmrs_symbols"])),
-                   rnti=c["rnti"], n_id=c["n_id"], slot=c["slot"],
-                   chest_window=c["chest_window"], n_iters=c["n_iters"],
-                   check_every=c["decoder_check_every"])
+                   n_symbols=c["n_symbols"], dmrs_symbols=tuple(sorted(c["dmrs_symbols"])),
+                   rnti=c["rnti"], n_id=c["n_id"], slot=c["slot"], **rx)
 
     # --- numerology (TS 38.211 §4-5) ---
     @property
@@ -475,7 +488,7 @@ def desegment(p: Pusch, bits: torch.Tensor) -> tuple:
 
 
 # --------------------------------------------------------------------------
-# Transmitter (TS 38.211 §6.3.1, §6.4.1.1, §5.3)
+# Transmitter (TS 38.211 §6.3.1, §6.4.1.1, §5.3; downlink §7.3.1, §7.4.1.1)
 # --------------------------------------------------------------------------
 
 def constellation(qm: int) -> np.ndarray:
@@ -494,9 +507,10 @@ def constellation(qm: int) -> np.ndarray:
     return (d / np.sqrt(np.mean(np.abs(d) ** 2))).astype(np.complex64)
 
 
-def transmit(p: Pusch, tb: torch.Tensor) -> torch.Tensor:
-    """(n, A) transport blocks -> (n, layers, samples) complex64 slots."""
-    s, qm, L = p.seg, p.qm, p.n_layers
+def codeword_bits(p: Pusch, tb: torch.Tensor) -> torch.Tensor:
+    """(n, A) transport blocks -> (n, G) scrambled codeword bits: the CRCs,
+    the code blocks, LDPC, rate matching and interleaving, scrambling."""
+    s = p.seg
     n, dev = tb.shape[0], tb.device
     g = graph(s.bg, s.Z)
     b = torch.cat([tb, crc(tb, s.tb_crc)], dim=1).reshape(n, s.C, s.payload)
@@ -505,7 +519,14 @@ def transmit(p: Pusch, tb: torch.Tensor) -> torch.Tensor:
     b = torch.cat([b, b.new_zeros((n, s.C, s.F))], dim=2)
     cw = ldpc_encode(g, b.reshape(n * s.C, s.K)).reshape(n, s.C, -1)
     bits = rate_match(p, cw)
-    bits = bits ^ torch.as_tensor(gold(data_cinit(p), p.G), device=dev)
+    return bits ^ torch.as_tensor(gold(data_cinit(p), p.G), device=dev)
+
+
+def slot_grid(p: Pusch, bits: torch.Tensor) -> torch.Tensor:
+    """(n, G) scrambled codeword bits -> (n, layers, 14, n_sc) complex64 RE
+    grid: QAM, layer mapping, the data symbols, the DMRS."""
+    qm, L = p.qm, p.n_layers
+    n, dev = bits.shape[0], bits.device
     groups = bits.reshape(n, -1, qm).to(torch.int64)
     idx = (groups << torch.arange(qm - 1, -1, -1, device=dev)).sum(-1)
     sym = torch.as_tensor(constellation(qm), device=dev)[idx]          # (n, G/qm)
@@ -518,7 +539,12 @@ def transmit(p: Pusch, tb: torch.Tensor) -> torch.Tensor:
             row = np.zeros(M, np.complex64)
             row[0::2] = pil * np.tile([1.0, occ(lay)], 3 * p.n_prb)
             grid[:, lay, s] = torch.as_tensor(row, device=dev)
-    return ofdm_modulate(p, grid)
+    return grid
+
+
+def transmit(p: Pusch, tb: torch.Tensor) -> torch.Tensor:
+    """(n, A) transport blocks -> (n, layers, samples) complex64 slots."""
+    return ofdm_modulate(p, slot_grid(p, codeword_bits(p, tb)))
 
 
 def ofdm_modulate(p: Pusch, grid: torch.Tensor) -> torch.Tensor:

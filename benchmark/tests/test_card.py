@@ -1,6 +1,7 @@
-"""On the card (skipped without one): one short run of a cell through
-benchmark/run.py, its last line in the contract's form and correct, and
-the control, at a batch a test run holds, failing the check."""
+"""On the card (skipped without one): one short run of a cell of each
+program path through benchmark/run.py, its last line in the contract's
+form and correct, and each path's control, at a batch a test run holds,
+failing the check."""
 import json
 import subprocess
 import sys
@@ -20,9 +21,10 @@ def card():
     return torch.device("cuda", 0)
 
 
-def test_a_short_run_is_correct(card):
+@pytest.mark.parametrize("name", ["nr40-pusch-2l2r-mcs16.clean32", "nr100-pdsch-1l-mcs9.tx32"])
+def test_a_short_run_is_correct(card, name):
     out = subprocess.run([sys.executable, "benchmark/run.py", "--workload",
-                          "nr40-pusch-2l2r-mcs16.clean32", "--seed", str(2**31 + 99),
+                          name, "--seed", str(2**31 + 99),
                           "--seconds", "2", "--trace", "0"],
                          cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -32,10 +34,12 @@ def test_a_short_run_is_correct(card):
     assert line["device"]["platform"] == "gpu" and line["device"]["count"] == 1
 
 
-def test_control_fails_the_check(card):
+@pytest.mark.parametrize("name, number", [("nr40-pusch-2l2r-mcs16.clean32", "llr_gap"),
+                                          ("nr100-pdsch-1l-mcs9.tx32", "wave_gap")])
+def test_control_fails_the_check(card, name, number):
     from benchmark import spec
     from benchmark.tools import calibrate
-    cell = spec.resolve("nr40-pusch-2l2r-mcs16.clean32")
+    cell = spec.resolve(name)
     cell.traffic = dict(cell.traffic, slots_per_call=4, pool_calls=2)
     got = calibrate.control(cell, 2**31 + 7, card)
-    assert got["llr_gap"] > cell.config["check"]["llr_gap"]
+    assert got[number] > cell.config["check"][number]

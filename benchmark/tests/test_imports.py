@@ -1,7 +1,8 @@
 """Nothing the harness loads has the top-level name jax, jaxlib, flax or
 openairinterface5g_tpu (the JAX package; the port's name begins with it,
-so names are compared whole), and the plain reference loads nothing of
-the program under test."""
+so names are compared whole), and the plain reference and the program
+paths' modules load nothing of the program under test until a path's
+step, configuration or spans are asked for."""
 import subprocess
 import sys
 
@@ -21,16 +22,18 @@ def _loaded(code: str) -> set:
 def test_harness_loads_no_jax():
     names = _loaded(
         "import sys; sys.path.insert(0, '.')\n"
-        "from benchmark import check, harness, load, nr, spec, tracing, workcount\n"
+        "from benchmark import harness, load, nr, spec, tracing, workcount\n"
         "from benchmark.tools import calibrate, sweep\n"
-        "from openairinterface5g_tpu_torch.models import pusch\n"
+        "from openairinterface5g_tpu_torch.models import pdsch, pusch\n"
         "from openairinterface5g_tpu_torch.runtime import executor\n"
-        "for w in ['nr40-pusch-2l2r-mcs16.clean32', 'nr40-pusch-2l2r-mcs16.open32']:\n"
+        "for w in ['nr40-pusch-2l2r-mcs16.clean32', 'nr40-pusch-2l2r-mcs16.open32',\n"
+        "          'nr100-pdsch-1l-mcs9.tx32']:\n"
         "    c = spec.resolve(w)\n"
         "    [spec.reader(m['name']) for m in c.end_to_end + c.per_layer]\n"
-        "    harness.program_config(c.config)\n"
-        "with tracing.layer_spans():\n"
-        "    pass\n")
+        "    path = spec.path(c.path)\n"
+        "    path.program_config(c.config)\n"
+        "    with path.layer_spans():\n"
+        "        pass\n")
     assert "openairinterface5g_tpu_torch" in names and "benchmark" in names
     assert not names & FORBIDDEN
     from benchmark import harness
@@ -39,7 +42,8 @@ def test_harness_loads_no_jax():
 
 def test_reference_loads_nothing_of_the_program():
     names = _loaded("import sys; sys.path.insert(0, '.')\n"
-                    "from benchmark import check, load, nr, workcount\n")
+                    "from benchmark import load, nr, workcount\n"
+                    "from benchmark.paths import pdsch_tx, pusch_rx\n")
     assert not names & (FORBIDDEN | {"openairinterface5g_tpu_torch"})
 
 

@@ -1,13 +1,18 @@
 """The plain reference on the CPU at a tiny size: its transmitter through
-its receiver recovers every transport block; its codewords satisfy every
-parity check; its decoder stops where the parity holds; its LDPC tables
-hold the entries of TS 38.212 written out below."""
+its receiver recovers every transport block; the uplink pools and the
+check's numbers are those the harness made before it ran more than one
+program path; the port's downlink transmitter gives its codeword bits and
+its waveform; its codewords satisfy every parity check; its decoder stops
+where the parity holds; its LDPC tables hold the entries of TS 38.212
+written out below."""
+import hashlib
 import json
 
 import pytest
 import torch
 
-from benchmark import check, load, nr
+from benchmark import harness, load, nr
+from benchmark.paths import pdsch_tx, pusch_rx
 from benchmark.spec import HERE
 
 
@@ -22,11 +27,74 @@ TRAFFIC = {"slots_per_call": 2, "pool_calls": 1, "channel": {"cross": 0.1, "nois
 @pytest.mark.parametrize("name", ["nr40-pusch-2l2r-mcs16", "nr100-pusch-1l4r-mcs20"])
 def test_transmitter_through_receiver_recovers_every_block(name):
     p = tiny(name)
-    pool, blocks = load.make_pool(p, TRAFFIC, 2**31 + 5, torch.device("cpu"))
-    ref = check.reference(p, pool[0])
+    pool, blocks = pusch_rx.make_pool(p, TRAFFIC, 2**31 + 5, torch.device("cpu"))
+    ref = pusch_rx.reference(p, pool[0])
     assert bool(ref["tb_ok"].all()) and bool(ref["cb_ok"].all())
     assert torch.equal(ref["tb_bits"], blocks[0])
     assert int(ref["iters"].max()) == 1          # 23 dB: one iteration
+
+
+# sha256 of a 12-PRB pool (2 calls of 2 slots, clean32's channel, seed
+# 2**31 + 17: each call's samples, then its blocks) and the float hex of
+# judge's llr_gap over the program's 4 calls of it, as the harness before
+# benchmark/paths/ made and read them (benchmark/load.py::make_pool,
+# benchmark/check.py::judge); the exact numbers were all 0
+BEFORE_PATHS = {
+    "nr40-pusch-2l2r-mcs16": (
+        "3ca4a042011954e9d18e476047b8230175c68e9f6db22c4f6525c933be797148",
+        "0x1.3a13de0000000p-21"),
+    "nr100-pusch-1l4r-mcs20": (
+        "ab36f20c4b1270092626229c3da5416cbe7dce92a729c04fc4bfa496d8ac3a3c",
+        "0x1.6d88c60000000p-22"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BEFORE_PATHS))
+def test_uplink_pools_and_numbers_are_those_before_paths(name):
+    from openairinterface5g_tpu_torch.models import pusch
+    seed = 2**31 + 17
+    conf = dict(json.loads((HERE / "configs" / f"{name}.json").read_text()), n_prb=12)
+    p = pusch_rx.reference_config(conf)
+    pool, blocks = pusch_rx.make_pool(p, dict(TRAFFIC, pool_calls=2), seed, torch.device("cpu"))
+    h = hashlib.sha256()
+    for rx, tb in zip(pool, blocks):
+        h.update(rx.numpy().tobytes())
+        h.update(tb.numpy().tobytes())
+    cfg = pusch_rx.program_config(conf)
+    sampled = load.sampled_calls(seed, len(pool), harness.SAMPLED)
+    kept, tb_ok, cb_ok = {}, [], []
+    for k in range(2 * len(pool)):
+        out = pusch.pusch_rx(cfg, pool[k % len(pool)], n_iters=conf["n_iters"])
+        tb_ok.append(out["tb_ok"])
+        cb_ok.append(out["cb_ok"])
+        if k in sampled:
+            kept[k] = {key: out[key] for key in ("tb_bits", "tb_ok", "cb_ok", "llrs")}
+    numbers, attempted, failed = pusch_rx.judge(p, sampled, kept, pool, blocks, tb_ok, cb_ok,
+                                                conf["check"])
+    digest, gap = BEFORE_PATHS[name]
+    assert h.hexdigest() == digest
+    assert numbers.pop("llr_gap") == (float.fromhex(gap), conf["check"]["llr_gap"])
+    assert all(v == (0, 0) for v in numbers.values())
+    assert (attempted, failed) == (8, 0)
+
+
+def test_port_downlink_transmitter_equals_the_reference():
+    """pdsch_tx against nr.transmit at 52 PRB, 2 code blocks a slot: the
+    codeword bits equal, the waveform within the configuration's wave_gap."""
+    conf = dict(json.loads((HERE / "configs" / "nr100-pdsch-1l-mcs9.json").read_text()),
+                n_prb=52)
+    p = pdsch_tx.reference_config(conf)
+    assert "n_rx" not in conf and p.seg.C > 1
+    (tb,), _ = pdsch_tx.make_pool(p, {"slots_per_call": 3, "pool_calls": 1}, 2**31 + 9,
+                                  torch.device("cpu"))
+    steps = pdsch_tx.steps(pdsch_tx.program_config(conf), conf, [0])
+    steps.counting = True
+    assert set(steps(0, tb)) == {"waveform"}
+    got, ref = steps.kept[0], pdsch_tx.reference(p, tb)
+    assert torch.equal(got["cw_bits"], ref["cw_bits"])
+    assert torch.equal(ref["waveform"], nr.transmit(p, tb))
+    gaps = pdsch_tx.wave_gaps(got["waveform"], ref["waveform"])
+    assert gaps.shape == (3,) and float(gaps.max()) <= conf["check"]["wave_gap"]
 
 
 def test_codewords_satisfy_every_parity_check():

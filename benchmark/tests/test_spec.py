@@ -1,15 +1,18 @@
 """The harness is driven by data: in a copy of the benchmark, a new
 configuration, traffic mix and metric, each a file of its own plus its
 entries in BENCHMARK.json, make a cell the harness resolves with no edit
-to a file that was there.  The names and units of BENCHMARK.json keep to
-their characters."""
+to a file that was there; so does a new program path, and the harness
+runs its window.  The names and units of BENCHMARK.json keep to their
+characters."""
 import json
 import re
 import shutil
+import time
 
 import pytest
+import torch
 
-from benchmark import spec
+from benchmark import harness, spec
 from benchmark.spec import ROOT
 
 
@@ -32,31 +35,100 @@ def test_every_cell_resolves():
         assert callable(spec.reader(cell.per_layer[0]["name"]))
 
 
-def test_a_new_cell_from_added_files_only(copy):
+# a program path of its own: each slot's 4 values scaled by the
+# configuration's "scale", checked against the pool it was drawn from
+TOY_PATH = '''
+import contextlib
+
+import torch
+
+
+def reference_config(config):
+    return config
+
+
+def program_config(config):
+    return config["scale"]
+
+
+def make_pool(ref, traffic, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pool = [torch.rand((traffic["slots_per_call"], 4), generator=gen, device=device)
+            for _ in range(traffic["pool_calls"])]
+    return pool, pool
+
+
+class steps:
+    def __init__(self, cfg, config, sampled):
+        self.scale, self.sampled = cfg, set(sampled)
+        self.counting, self.n, self.kept = False, 0, {}
+
+    def __call__(self, i, x):
+        y = x * self.scale
+        if self.counting:
+            if self.n in self.sampled:
+                self.kept[self.n] = y
+            self.n += 1
+        return {"y": y}
+
+
+def verdict(run, steps, pool, truth, sampled, limits):
+    wrong = sum(k not in steps.kept
+                or not torch.equal(steps.kept[k], truth[k % len(truth)] * run.p["scale"])
+                for k in sampled)
+    return {"wrong": (wrong, limits["wrong"])}, steps.n * run.slots_per_call, wrong
+
+
+def layer_spans():
+    return contextlib.nullcontext()
+
+
+def work_of(run, layer):
+    return 1.0, "bytes"
+
+
+def control(cell, seed, device):
+    return {"wrong": 0}
+'''
+
+
+@pytest.mark.parametrize("new", ["config", "path"])
+def test_a_new_cell_from_added_files_only(copy, new):
     before = {p: p.read_bytes() for p in copy.rglob("*") if p.is_file()}
     bench = json.loads((copy / "BENCHMARK.json").read_text())
-    conf = json.loads((copy / "benchmark/configs/nr40-pusch-2l2r-mcs16.json").read_text())
-    (copy / "benchmark/configs/nr40-pusch-1l2r-mcs20.json").write_text(
-        json.dumps(dict(conf, n_prb=51, mcs=20, n_layers=1)))
-    (copy / "benchmark/traffic/burst64.json").write_text(json.dumps(
-        dict(json.loads((copy / "benchmark/traffic/clean32.json").read_text()),
-             slots_per_call=64)))
+    if new == "config":
+        conf = json.loads((copy / "benchmark/configs/nr40-pusch-2l2r-mcs16.json").read_text())
+        conf = dict(conf, n_prb=51, mcs=20, n_layers=1)
+        name, traffic, cell = "nr40-pusch-1l2r-mcs20", "burst64", "nr40-pusch-1l2r-mcs20.burst64"
+        mix = dict(json.loads((copy / "benchmark/traffic/clean32.json").read_text()),
+                   slots_per_call=64)
+    else:
+        (copy / "benchmark/paths/toy.py").write_text(TOY_PATH)
+        conf = {"name": "toy-scale3", "path": "toy", "scale": 3.0, "check": {"wrong": 0}}
+        name, traffic, cell = "toy-scale3", "toy8", "toy-scale3.toy8"
+        mix = {"loop": "closed", "slots_per_call": 8, "pool_calls": 2, "depth": 2}
+    (copy / f"benchmark/configs/{name}.json").write_text(json.dumps(conf))
+    (copy / f"benchmark/traffic/{traffic}.json").write_text(json.dumps(mix))
     (copy / "benchmark/metrics/decoded_mbps.py").write_text(
         "def read(run):\n    return 1.0\n")
-    bench["configs"].append({"name": "nr40-pusch-1l2r-mcs20", "source": "a public source",
-                             "file": "benchmark/configs/nr40-pusch-1l2r-mcs20.json",
+    bench["configs"].append({"name": name, "source": "a public source",
+                             "file": f"benchmark/configs/{name}.json",
                              "reduced": [], "why": "a test"})
-    bench["workloads"].append({"name": "nr40-pusch-1l2r-mcs20.burst64",
-                               "config": "nr40-pusch-1l2r-mcs20", "traffic": "burst64",
+    bench["workloads"].append({"name": cell, "config": name, "traffic": traffic,
                                "chips": 1, "why": "a test"})
     bench["end_to_end"].append({"name": "decoded_mbps", "unit": "Mbit/s", "better": "higher",
-                                "bound": 0.05, "source": "host_clock",
-                                "workloads": ["nr40-pusch-1l2r-mcs20.burst64"]})
+                                "bound": 0.05, "source": "host_clock", "workloads": [cell]})
     (copy / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = spec.resolve("nr40-pusch-1l2r-mcs20.burst64", copy)
-    assert cell.config["n_prb"] == 51 and cell.traffic["slots_per_call"] == 64
-    assert {m["name"] for m in cell.end_to_end} == {"decoded_mbps", "setup_s"}
+    got = spec.resolve(cell, copy)
+    assert got.config == conf and got.traffic == mix
+    assert {m["name"] for m in got.end_to_end} == {"decoded_mbps", "setup_s"}
     assert spec.reader("decoded_mbps", copy)(None) == 1.0
+    if new == "path":
+        r = harness.run_cell(got, 2**31 + 21, 2.0, False, torch.device("cpu"),
+                             time.perf_counter(), copy)
+        assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
+        assert r["metrics"]["decoded_mbps"]["value"] == 1.0 and "setup_s" in r["metrics"]
+        assert r["checks"] == {"wrong": {"value": 0, "limit": 0}}
     changed = [p for p, b in before.items() if p.name != "BENCHMARK.json" and p.read_bytes() != b]
     assert changed == []
 
@@ -80,7 +152,7 @@ def test_names_and_units_keep_to_their_characters():
             assert re.fullmatch(r"[A-Za-z0-9_./-]+", str(f.relative_to(ROOT))), f
 
 
-@pytest.mark.parametrize("breakage", ["no reader", "moves unreported", "no config"])
+@pytest.mark.parametrize("breakage", ["no reader", "moves unreported", "no config", "no path"])
 def test_resolve_refuses_a_cell_it_cannot_run(copy, breakage):
     bench = json.loads((copy / "BENCHMARK.json").read_text())
     cell = bench["workloads"][0]["name"]
@@ -89,8 +161,10 @@ def test_resolve_refuses_a_cell_it_cannot_run(copy, breakage):
     elif breakage == "moves unreported":
         bench["per_layer"][0] = dict(bench["per_layer"][0], moves="setup_s.x",
                                      workloads=[cell])
-    else:
+    elif breakage == "no config":
         bench["workloads"][0]["config"] = "no-such-config"
+    else:
+        (copy / "benchmark/paths/pusch_rx.py").unlink()
     (copy / "BENCHMARK.json").write_text(json.dumps(bench))
     with pytest.raises(ValueError):
         spec.resolve(cell, copy)

@@ -1,5 +1,5 @@
-"""The reduction of a Chrome trace to device time per layer, busy time,
-top operations and idle gaps, on a hand-made trace."""
+"""The reduction of a Chrome trace to device time and operations per
+layer, busy time, top operations and idle gaps, on a hand-made trace."""
 import pytest
 
 from benchmark import tracing
@@ -35,6 +35,8 @@ def test_reduce_attributes_and_merges():
     assert r["layer_s"] == pytest.approx({"phy/ofdm.py": 100e-6, "coding/decode": 200e-6,
                                           "models/pusch.py": 50e-6,
                                           tracing.OUTSIDE: 100e-6})
+    assert r["layer_ops"] == {"phy/ofdm.py": 1, "coding/decode": 1, "models/pusch.py": 1,
+                              tracing.OUTSIDE: 1}
     assert r["device_ops"][0] == ["ldpc", pytest.approx(200e-6)]
     gaps = dict(r["idle_gaps"])
     assert gaps["models/pusch.py: cat"] == pytest.approx(80e-6)

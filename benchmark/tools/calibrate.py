@@ -3,10 +3,12 @@
     python3 benchmark/tools/calibrate.py --workload <cell> --seeds 1,2,3 [--seconds 1] [--control-seeds 1,2,3]
 
 For each seed, one run of the cell with a short window (what the program
-reads: each number of the check), and for each control seed the control:
-the plain reference put in the program's place, its frontend rounded to
-bfloat16 at every stage (``nr.bf16``), judged by the same check on the
-same sampled calls.  One JSON line per run.
+reads: each number of the check), and for each control seed the control
+of the cell's path (``benchmark/paths/<path>.py::control``): the plain
+reference put in the program's place, rounded to bfloat16 where the path
+says (``nr.bf16``: ``pusch_rx`` its frontend at every stage, ``pdsch_tx``
+its RE grid before the IFFT), judged by the same check on the same sampled
+calls.  One JSON line per run.
 """
 import argparse
 import json
@@ -19,21 +21,9 @@ sys.path.insert(0, str(ROOT))
 
 
 def control(cell, seed: int, device) -> dict:
-    """The control's numbers for one seed."""
-    from benchmark import check, harness, load, nr
-    p = nr.Pusch.from_config(cell.config)
-    pool, blocks = load.make_pool(p, cell.traffic, seed, device)
-    sampled = load.sampled_calls(seed, len(pool), harness.SAMPLED)
-    kept, refs = {}, {}
-    for k in sampled:
-        out = check.reference(p, pool[k % len(pool)], nr.bf16)
-        kept[k] = {"llrs": out["llrs"], "tb_bits": out["tb_bits"], "tb_ok": out["tb_ok"],
-                   "cb_ok": out["cb_ok"]}
-    numbers, _, failed = check.judge(p, sampled, kept, pool, blocks,
-                                     [o["tb_ok"] for o in kept.values()],
-                                     [o["cb_ok"] for o in kept.values()],
-                                     cell.config["check"], refs)
-    return {k: v for k, (v, _) in numbers.items()} | {"failed": failed}
+    """The control's numbers for one seed, as the cell's path makes them."""
+    from benchmark import spec
+    return spec.path(cell.path, ROOT).control(cell, seed, device)
 
 
 def main() -> int:

@@ -34,16 +34,16 @@ def noise_std(snr_db: float) -> float:
 def edge(cell, snrs: list, seeds: list, dev) -> None:
     import torch
 
-    from benchmark import check, harness, load, nr
+    from benchmark.paths import pusch_rx as path
     from openairinterface5g_tpu_torch.models import pusch
-    p = nr.Pusch.from_config(cell.config)
-    cfg = harness.program_config(cell.config)
+    p = path.reference_config(cell.config)
+    cfg = path.program_config(cell.config)
     passing = None
     for snr in snrs:
         traffic = dict(cell.traffic, channel=dict(cell.traffic["channel"], noise_std=noise_std(snr)))
         fails = 0
         for seed in seeds:
-            pool, blocks = load.make_pool(p, traffic, seed, dev)
+            pool, blocks = path.make_pool(p, traffic, seed, dev)
             for rx, tb in zip(pool, blocks):
                 out = pusch.pusch_rx(cfg, rx, n_iters=cell.config["n_iters"])
                 fails += int((~(out["tb_ok"] & (out["tb_bits"] == tb).all(1))).sum())
@@ -61,9 +61,9 @@ def edge(cell, snrs: list, seeds: list, dev) -> None:
     traffic = dict(cell.traffic, channel=dict(cell.traffic["channel"], noise_std=noise_std(snr)))
     iters, ok = [], 0
     for seed in seeds[:3]:
-        pool, blocks = load.make_pool(p, traffic, seed, dev)
+        pool, blocks = path.make_pool(p, traffic, seed, dev)
         for rx, tb in zip(pool, blocks):
-            ref = check.reference(p, rx)
+            ref = path.reference(p, rx)
             iters.append(ref["iters"].float().mean().item())
             ok += int((ref["tb_ok"] & (ref["tb_bits"] == tb).all(1)).sum())
         torch.cuda.empty_cache()
@@ -74,11 +74,12 @@ def edge(cell, snrs: list, seeds: list, dev) -> None:
 
 
 def knee(cell, periods: list, seconds: float, dev) -> None:
-    from benchmark import harness, load, nr
+    from benchmark import harness, load, spec
     from openairinterface5g_tpu_torch.runtime.executor import SlotExecutor
-    p = nr.Pusch.from_config(cell.config)
-    pool, _ = load.make_pool(p, cell.traffic, 1, dev)
-    steps = harness.Steps(harness.program_config(cell.config), cell.config["n_iters"], [])
+    path = spec.path(cell.path, ROOT)
+    p = path.reference_config(cell.config)
+    pool, _ = path.make_pool(p, cell.traffic, 1, dev)
+    steps = path.steps(path.program_config(cell.config), cell.config, [])
     ex = SlotExecutor(steps, depth=cell.traffic["depth"], device=dev)
     ex.run([(pool[i % len(pool)],) for i in range(harness.WARM_CALLS)], collect=False)
     ex.stats.clear()

@@ -6,7 +6,7 @@ profiling.py) on the card, in one process.
 A cell's closed loop on the slot executor, in turns: the tracer off; on
 by profiling.enable() (spans and counters kept, no capture); and on under
 the benchmark's capture (the --trace 1 stretch: torch.profiler with
-benchmark/tracing.py's layer spans, a pass over the pool's calls 4
+the cell's path's layer spans, a pass over the pool's calls 4
 times).  The turns go off, on, capture, capture, on, off, each round.  A
 line a turn: wall and executor dispatch ms a call, and where the tracer
 was on the spans' ms a call (dispatch, pusch_rx, the four host self times).
@@ -29,7 +29,7 @@ sys.path.insert(0, str(ROOT))
 ACTIVE_TESTS = 3          # active() tests a call: the hand-in, the retire, the decode
 
 
-def _turn(ex, pool, calls, mode, profiling, tracing) -> dict:
+def _turn(ex, pool, calls, mode, profiling, tracing, path) -> dict:
     from benchmark import load, spans
     profiling.reset()
     ex.stats.clear()
@@ -48,7 +48,7 @@ def _turn(ex, pool, calls, mode, profiling, tracing) -> dict:
         finally:
             profiling.disable()
     elif mode == "capture":          # the trace's export and reduction are not timed
-        with tracing.layer_spans(), tracing.captured(out):
+        with path.layer_spans(), tracing.captured(out):
             wall = go()
     else:
         wall = go()
@@ -108,15 +108,16 @@ def main() -> int:
     args = ap.parse_args()
     import torch
 
-    from benchmark import harness, load, nr, spec, tracing
+    from benchmark import harness, spec, tracing
     from openairinterface5g_tpu_torch.runtime.executor import SlotExecutor
     from openairinterface5g_tpu_torch.utils import profiling
     dev = torch.device("cuda", 0)
     torch.set_num_threads(1)
     cell = spec.resolve(args.workload, ROOT)
-    p = nr.Pusch.from_config(cell.config)
-    pool, _ = load.make_pool(p, cell.traffic, args.seed, dev)
-    steps = harness.Steps(harness.program_config(cell.config), cell.config["n_iters"], [])
+    path = spec.path(cell.path, ROOT)
+    p = path.reference_config(cell.config)
+    pool, _ = path.make_pool(p, cell.traffic, args.seed, dev)
+    steps = path.steps(path.program_config(cell.config), cell.config, [])
     ex = SlotExecutor(steps, depth=cell.traffic["depth"], device=dev)
     ex.run([(pool[i % len(pool)],) for i in range(harness.WARM_CALLS)], collect=False)
     captured_calls = harness.TRACED_PASSES * len(pool)
@@ -124,7 +125,7 @@ def main() -> int:
     for _ in range(args.rounds):
         for mode in ("off", "enable", "capture", "capture", "enable", "off"):
             rows.append(_turn(ex, pool, captured_calls if mode == "capture" else args.calls,
-                              mode, profiling, tracing))
+                              mode, profiling, tracing, path))
             print(json.dumps(rows[-1]), flush=True)
     summary = {"workload": args.workload, "card": harness.power_limit(), **span_ns(profiling)}
     base = {k: statistics.median(r[k] for r in rows if r["mode"] == "off")

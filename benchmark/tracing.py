@@ -1,6 +1,7 @@
 """The traced sub-window: spans from the benchmark around the calls into
-each layer of the program, a ``torch.profiler`` trace of CPU and CUDA
-activity, and the reduction of that trace to device time per layer, the
+each layer of the program (each path's ``layer_spans``, built on ``wrap``
+and ``patched``), a ``torch.profiler`` trace of CPU and CUDA activity, and
+the reduction of that trace to device time and operations per layer, the
 device's busy time, its top operations and its idle gaps.
 
 A device operation belongs to the innermost span that was open on the host
@@ -26,7 +27,8 @@ NAME_CHARS = 120         # of an operation's name in the breakdown
 OUTSIDE = "outside every span"
 
 
-def _wrap(fn, span: str):
+def wrap(fn, span: str):
+    """fn, run inside a span of the name `span`."""
     def wrapped(*a, **kw):
         with record_function(span):
             return fn(*a, **kw)
@@ -34,31 +36,10 @@ def _wrap(fn, span: str):
 
 
 @contextlib.contextmanager
-def layer_spans():
-    """Spans named after the layers of models/pusch.py::pusch_rx's path,
-    opened around the program's own functions while the context is held;
-    the functions are put back after it."""
-    from openairinterface5g_tpu_torch.coding import rate_matching, segmentation
-    from openairinterface5g_tpu_torch.models import pusch
-    from openairinterface5g_tpu_torch.ops import pusch_frontend
-    from openairinterface5g_tpu_torch.runtime import executor
-
-    def decoder(name, _orig=pusch.ldpc_decoder):
-        return _wrap(_orig(name), "coding/decode")
-
-    patches = [
-        (pusch, "pusch_rx", _wrap(pusch.pusch_rx, "models/pusch.py")),
-        (pusch, "ofdm_demodulate", _wrap(pusch.ofdm_demodulate, "phy/ofdm.py")),
-        (pusch, "extract_from_grid", _wrap(pusch.extract_from_grid, "phy/ofdm.py")),
-        (pusch_frontend, "frontend_planes",
-         _wrap(pusch_frontend.frontend_planes, "ops/pusch_frontend.py")),
-        (rate_matching, "fused_rate_match_rx_planes",
-         _wrap(rate_matching.fused_rate_match_rx_planes, "coding/rate_recovery")),
-        (pusch, "ldpc_decoder", decoder),
-        (segmentation, "desegment_tb", _wrap(segmentation.desegment_tb, "coding/desegment")),
-        (pusch, "crc_ok", _wrap(pusch.crc_ok, "coding/crc")),
-        (executor, "to_host", _wrap(executor.to_host, "runtime/executor.py")),
-    ]
+def patched(patches: list):
+    """Each (module, name, fn) of `patches` put in place while the context
+    is held, and the module's own function put back after it (a path's
+    ``layer_spans``)."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -67,6 +48,13 @@ def layer_spans():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def layer_spans():
+    """The uplink receiver's spans (``paths/pusch_rx.py::layer_spans``),
+    under the name from before benchmark/paths/, for the port's own tests."""
+    from .paths import pusch_rx
+    return pusch_rx.layer_spans()
 
 
 @contextlib.contextmanager
@@ -109,7 +97,8 @@ def _innermost(spans: list, t: float):
 
 def reduce(events: list) -> dict:
     """Chrome-trace events -> {window_s, busy_s, layer_s {span: device s},
-    device_ops [[name, s]], idle_gaps [[what the host was doing, s]]}, over
+    layer_ops {span: device operations}, device_ops [[name, s]], idle_gaps
+    [[what the host was doing, s]]}, over
     the WINDOW span.  An idle gap is named by the span and the operation
     whose launch the device was waiting for."""
     win = next((e for e in events if e.get("name") == WINDOW and e.get("ph") == "X"
@@ -128,7 +117,7 @@ def reduce(events: list) -> dict:
             float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
            if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
     ops = [o for o in ops if w0 <= o[2] and o[3] <= w1 + 1e3]
-    layer_us, op_us = defaultdict(float), defaultdict(float)
+    layer_us, op_us, layer_n = defaultdict(float), defaultdict(float), defaultdict(int)
     launched = []
     for name, corr, a, b in ops:
         name = name[:NAME_CHARS]
@@ -136,6 +125,7 @@ def reduce(events: list) -> dict:
         span = _innermost(spans, t) if t is not None else None
         layer = span[0] if span else OUTSIDE
         layer_us[layer] += b - a
+        layer_n[layer] += 1
         op_us[name] += b - a
         launched.append((a, b, name, layer))
     busy = _merge([[a, min(b, w1)] for a, b, _, _ in launched])
@@ -153,6 +143,7 @@ def reduce(events: list) -> dict:
         "window_s": (w1 - w0) * 1e-6,
         "busy_s": sum(b - a for a, b in busy) * 1e-6,
         "layer_s": {k: v * 1e-6 for k, v in layer_us.items()},
+        "layer_ops": dict(layer_n),
         "device_ops": sorted(([k, v * 1e-6] for k, v in op_us.items()), key=lambda x: -x[1])[:10],
         "idle_gaps": sorted(([k, v] for k, v in gaps.items()), key=lambda x: -x[1])[:10],
     }

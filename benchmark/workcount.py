@@ -4,13 +4,18 @@ A roofline share is the least time the card could take for the work, over
 the time the work took on the device.  The least time is the larger of the
 bytes over the published HBM bandwidth and the operations over the
 published float32 rate outside the tensor cores (NVIDIA H100 SXM data
-sheet, dense, at 700 W).  Both counts are of the function computed, not of
-the kernel that computes it, so two versions of a kernel share one bound.
+sheet, dense, at 700 W); the LDPC encoder's bit operations go over the
+32-bit integer rate, worked out the same way: 64 INT32 lanes a
+multiprocessor (half its 128 float32 lanes, which the float32 rate counts
+twice for the fused multiply-add) x 132 multiprocessors x 1.98 GHz.  Both
+counts are of the function computed, not of the kernel that computes it,
+so two versions of a kernel share one bound.
 """
 from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # min-sum operations per edge, lane and iteration: v = t - o, |v|, three
 # for min1/min2, sign xor, the excluded-min compare and select, the sign
@@ -22,9 +27,9 @@ OPS_PER_ROW_ITER = 2
 OPS_PER_EDGE_CHECK = 2
 
 
-def least_s(n_bytes: float, n_ops: float) -> tuple:
+def least_s(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(least seconds on the card, "bytes" or "operations": what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -43,6 +48,20 @@ def decoder_work(Z: int, kc: int, rows: int, edges: int, cols: int, in_bytes: in
         n_checks = n_cb
     n_ops = Z * (it * (OPS_PER_EDGE_ITER * edges + OPS_PER_ROW_ITER * rows)
                  + OPS_PER_EDGE_CHECK * edges * n_checks)
+    return n_bytes, n_ops
+
+
+def encoder_work(Z: int, kc: int, row_edges: list, n_cols: int, n_cb: int) -> tuple:
+    """(bytes, 32-bit operations) of the LDPC encoding of n_cb code blocks
+    into their first n_cols mother-code columns, whatever implements it:
+    the kc Z information bits read and the n_cols Z codeword bits written,
+    one bit each, so that a kernel on packed bits is held to the same
+    least time; one 32-bit XOR a base-graph edge and 32 lifted bits, over
+    every edge of the rows whose parity columns are written (the 4 core
+    rows and n_cols - kc - 4 extension rows; row_edges: the edges of each
+    row of the base graph, in order)."""
+    n_bytes = n_cb * (kc + n_cols) * Z / 8
+    n_ops = n_cb * sum(row_edges[: n_cols - kc]) * Z / 32
     return n_bytes, n_ops
 
 
