@@ -295,6 +295,8 @@ class _Consts(NamedTuple):
     """A configuration's constants on one device."""
     dmrs_rows: torch.Tensor      # (L, n_dmrs, M) complex64 (_dmrs_rows)
     dmrs_combs: tuple            # per layer: (n_pil,) long, its DMRS comb
+    comb_sc: tuple               # per comb delta 0, 1: (n_pil,) long, its
+                                 # subcarriers in the BWP grid
     pilots: dict                 # DMRS symbol -> (6*n_prb,) complex64
     re_sym: torch.Tensor         # (N,) long: data REs' symbols (data_re_map)
     re_sc: torch.Tensor          # (N,) long: their subcarriers in the allocation
@@ -304,6 +306,8 @@ class _Consts(NamedTuple):
     ptrs_pilots: torch.Tensor    # (n_p, K) complex64: each PTRS symbol's pilots
     data_syms: torch.Tensor      # (n_data,) long: cfg.data_symbols
     dmrs_syms: torch.Tensor      # (n_dmrs,) long: cfg.dmrs_symbols
+    ptrs_src: torch.Tensor       # (n_symbols,) long: per allocation symbol, the
+                                 # PTRS symbol whose phase it takes (_ptrs_phases)
 
 
 @functools.lru_cache(maxsize=64)
@@ -324,14 +328,28 @@ def _consts(cfg: PuschConfig, device: torch.device) -> _Consts:
     p_pil = np.zeros((len(p_syms), len(psc)), np.complex64)
     for i, s in enumerate(p_syms):      # DMRS-seeded per symbol, single PTRS port
         p_pil[i] = refsig.dmrs_sequence_np(refsig.dmrs_cinit(cfg.slot, s, cfg.n_id), len(psc))
+    # each allocation symbol takes the last PTRS symbol at or before it, else the first
+    syms = np.arange(cfg.start_symbol, cfg.start_symbol + cfg.n_symbols)
+    p_src = np.maximum(np.searchsorted(np.asarray(p_syms, np.int64), syms, side="right") - 1, 0)
     return _Consts(
         dmrs_rows=on(_dmrs_rows(cfg)), dmrs_combs=tuple(combs),
+        comb_sc=tuple(on(refsig.dmrs_type1_sc_indices(cfg.n_prb, d) + cfg.sc0, torch.long)
+                      for d in (0, 1)),
         pilots={s: on(cfg.dmrs_pilot_np(s)) for s in cfg.dmrs_symbols},
         re_sym=on(sym_ids, torch.long), re_sc=on(sc_ids, torch.long),
         re_pos=on(sym_ids - cfg.start_symbol, torch.long),
         ptrs_syms=on(p_syms, torch.long), ptrs_sc=on(psc, torch.long),
         ptrs_pilots=on(p_pil), data_syms=on(cfg.data_symbols, torch.long),
-        dmrs_syms=on(cfg.dmrs_symbols, torch.long))
+        dmrs_syms=on(cfg.dmrs_symbols, torch.long), ptrs_src=on(p_src, torch.long))
+
+
+@functools.lru_cache(maxsize=64)
+def _occ_signs(ports: tuple, device: torch.device) -> torch.Tensor:
+    """(len(ports),) float32: each port's frequency OCC on the odd pilot of
+    a pair, kept on the device (a host list would be copied over, and wait
+    for the device, on every call)."""
+    return torch.as_tensor([refsig.dmrs_type1_port_weights(p % 4)[0][1] for p in ports],
+                           device=device)
 
 
 # --------------------------------------------------------------------------
@@ -438,7 +456,7 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: torch.Tensor,
     n_ports overrides the estimated port count (one joint estimate over two
     codewords' layers).
     """
-    M, a0 = 12 * cfg.n_prb, cfg.sc0
+    M = 12 * cfg.n_prb
     P = cfg.n_layers if n_ports is None else n_ports
     ports = list(range(cfg.dmrs_port0, cfg.dmrs_port0 + P))
     double = cfg.dmrs_max_len == 2
@@ -449,7 +467,7 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: torch.Tensor,
                   for i in range(0, len(cfg.dmrs_symbols), 2)]
     else:
         groups = [(s,) for s in cfg.dmrs_symbols]
-    pilots = _consts(cfg, re_grid.device).pilots
+    k = _consts(cfg, re_grid.device)
 
     def delta_of(p):
         return refsig.dmrs_type1_port_weights(p % 4)[1]
@@ -458,16 +476,14 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: torch.Tensor,
     nvar_terms = []                                      # each (B, R, k)
     for delta in sorted({delta_of(p) for p in ports}):
         g_ports = [p for p in ports if delta_of(p) == delta]
-        sc = torch.as_tensor(refsig.dmrs_type1_sc_indices(cfg.n_prb, delta) + a0,
-                             dtype=torch.long, device=re_grid.device)
+        sc = k.comb_sc[delta]
         # LS per symbol of each group, shared by the group's ports
-        ls_groups = [[ce.ls_estimate(re_grid[:, :, s, :][..., sc], pilots[s]) for s in grp]
+        ls_groups = [[ce.ls_estimate(re_grid[:, :, s, :][..., sc], k.pilots[s]) for s in grp]
                      for grp in groups]                  # each (B, R, n_pil)
         if not double and (P > 1 or len(g_ports) > 1):
             # vectorized CDM separation: the ports differ by the OCC sign on
             # odd pilots
-            wf1 = torch.as_tensor([refsig.dmrs_type1_port_weights(p % 4)[0][1]
-                                   for p in g_ports], device=re_grid.device)
+            wf1 = _occ_signs(tuple(g_ports), re_grid.device)
             ls = sum(ls_t[0] for ls_t in ls_groups) / len(ls_groups)
             pairs = 0.5 * (ls[..., None, 0::2] + wf1[:, None] * ls[..., None, 1::2])
             dd = pairs[..., 1:] - pairs[..., :-1]
@@ -523,7 +539,7 @@ def pusch_equalize(cfg: PuschConfig, re_grid: torch.Tensor, h_est, nvar):
         if P == 2:
             return eq.mmse_equalize_2layer(h_re, y, nvar[:, None])
         return eq.zf_equalize(h_re, y, nvar[:, None, None, None])
-    y = re_grid[:, :, list(cfg.data_symbols), a0: a0 + M]   # (B, R, S, M)
+    y = re_grid[:, :, _consts(cfg, re_grid.device).data_syms, a0: a0 + M]   # (B, R, S, M)
     if P > 1:
         return _mmse_over_syms(h_est, y, nvar)
     x, mag = _mrc_over_syms(h_est[:, :, 0, :], y)
@@ -545,12 +561,7 @@ def _ptrs_phases(cfg: PuschConfig, re_grid: torch.Tensor, h_est: torch.Tensor) -
     yp = re_grid[:, :, k.ptrs_syms[:, None], k.ptrs_sc[None, :] + a0]   # (B, R, n_p, K)
     z = torch.sum(yp * torch.conj(hp[:, :, None] * k.ptrs_pilots), dim=(1, 3))  # (B, n_p)
     cur = torch.conj(z / torch.clamp(z.abs(), min=1e-12))
-    # the phasor of each allocation symbol: the last PTRS symbol at or before
-    # it, else the first
-    syms = np.arange(cfg.start_symbol, cfg.start_symbol + cfg.n_symbols)
-    p_syms = np.array([s for s, f in zip(cfg.data_symbols, cfg.ptrs_symbol_flags) if f])
-    src = np.maximum(np.searchsorted(p_syms, syms, side="right") - 1, 0)
-    return cur[:, torch.as_tensor(src, device=cur.device)]
+    return cur[:, k.ptrs_src]
 
 
 def pusch_llrs(cfg: PuschConfig, re_grid: torch.Tensor, x, mag,
@@ -591,6 +602,92 @@ def _use_kernel_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> bool:
     return False
 
 
+def _use_graphed_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> bool:
+    """The eager chain is replayed from CUDA graphs (_FrontendGraphs) by
+    'auto' for CUDA tensors, on a rectangular CP-OFDM allocation with
+    single-symbol DMRS, the window estimate and the linear receiver, and
+    not inside another capture."""
+    return (cfg.frontend_backend == "auto" and re_grid.is_cuda
+            and cfg.receiver == "linear" and cfg.chest_mode == "window"
+            and cfg.dmrs_max_len == 1 and not cfg.uses_re_map
+            and not cfg.transform_precoding
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _FrontendGraphs(NamedTuple):
+    """The eager chain of one configuration and grid shape, captured as
+    one CUDA graph a stage (sharing one memory pool, replayed in capture
+    order) around static tensors: the input grid, each stage's outputs."""
+    grid: torch.Tensor
+    est: torch.cuda.CUDAGraph
+    equalize: torch.cuda.CUDAGraph
+    llr: torch.cuda.CUDAGraph
+    h_est: torch.Tensor
+    nvar: torch.Tensor
+    x: torch.Tensor
+    mag: torch.Tensor
+    llrs: torch.Tensor
+
+
+_GRAPHS: dict = {}
+_MAX_GRAPHS = 4
+
+
+def _capture_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> _FrontendGraphs:
+    """Capture the eager chain at re_grid's shape.  One eager pass runs
+    first on the capture's stream, so the libraries' handles and
+    workspaces, the cuFFT plans and this configuration's constants are
+    made outside the graphs."""
+    dev = re_grid.device
+    side = torch.cuda.Stream(dev)
+    grid = re_grid.clone()
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        h, nvar = pusch_channel_estimate(cfg, grid)
+        x, mag = pusch_equalize(cfg, grid, h, nvar)
+        pusch_llrs(cfg, grid, x, mag, h)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    est, equalize, llr = (torch.cuda.CUDAGraph() for _ in range(3))
+    with torch.cuda.graph(est, stream=side):
+        h, nvar = pusch_channel_estimate(cfg, grid)
+    with torch.cuda.graph(equalize, pool=est.pool(), stream=side):
+        x, mag = pusch_equalize(cfg, grid, h, nvar)
+    with torch.cuda.graph(llr, pool=est.pool(), stream=side):
+        llrs = pusch_llrs(cfg, grid, x, mag, h)
+    return _FrontendGraphs(grid, est, equalize, llr, h, nvar, x, mag, llrs)
+
+
+def _frontend_graphs(cfg: PuschConfig, re_grid: torch.Tensor) -> _FrontendGraphs:
+    key = (cfg, tuple(re_grid.shape), re_grid.dtype, re_grid.device)
+    got = _GRAPHS.get(key)
+    if got is None:
+        if len(_GRAPHS) >= _MAX_GRAPHS:
+            # no replay may still run on memory about to go back to the allocator
+            torch.cuda.synchronize(re_grid.device)
+            _GRAPHS.clear()
+        got = _GRAPHS[key] = _capture_frontend(cfg, re_grid)
+    return got
+
+
+def _graphed_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> torch.Tensor:
+    """pusch_frontend's eager chain as three graph launches, each inside
+    its stage's span: the host hands the card three launches a call in
+    place of the chain's ~120 operations.  The LLRs are copied out of the
+    static buffer, which the next call overwrites."""
+    g = _frontend_graphs(cfg, re_grid)
+    g.grid.copy_(re_grid)
+    with profiling.trace("phy/channel_estimation.py"):
+        g.est.replay()
+    if profiling.active():
+        # the noise estimate, the MMSE's regulariser, kept on the device unread
+        profiling.count("phy/channel_estimation:nvar", g.nvar.clone())
+    with profiling.trace("phy/equalization.py"):
+        g.equalize.replay()
+    with profiling.trace("phy/llr.py"):
+        g.llr.replay()
+    return g.llrs.clone()
+
+
 def pusch_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> torch.Tensor:
     """RE grid (B, n_rx, symbols, n_sc_bwp) -> descrambled codeword LLRs
     (B, G): channel estimation, MRC/MMSE/ZF or 2-layer ML detection, PTRS
@@ -599,14 +696,22 @@ def pusch_frontend(cfg: PuschConfig, re_grid: torch.Tensor) -> torch.Tensor:
     _check_branches(cfg)
     if _use_kernel_frontend(cfg, re_grid):
         return fe.frontend(cfg, re_grid)
-    h_est, nvar = pusch_channel_estimate(cfg, re_grid)
+    if _use_graphed_frontend(cfg, re_grid):
+        return _graphed_frontend(cfg, re_grid)
+    with profiling.trace("phy/channel_estimation.py"):
+        h_est, nvar = pusch_channel_estimate(cfg, re_grid)
+    if profiling.active():
+        # the noise estimate, the MMSE's regulariser, kept on the device unread
+        profiling.count("phy/channel_estimation:nvar", nvar)
     if cfg.receiver == "ml":
         M, a0 = 12 * cfg.n_prb, cfg.sc0
-        y = re_grid[:, :, list(cfg.data_symbols), a0: a0 + M]
+        y = re_grid[:, :, _consts(cfg, re_grid.device).data_syms, a0: a0 + M]
         llr = ml_llrs_2layer(h_est, y, cfg.qm_rate[0], nvar)    # (B, 2, S, M, qm)
         return _descramble(cfg, llr.permute(0, 2, 3, 1, 4).reshape(re_grid.shape[0], -1))
-    x, mag = pusch_equalize(cfg, re_grid, h_est, nvar)
-    return pusch_llrs(cfg, re_grid, x, mag, h_est)
+    with profiling.trace("phy/equalization.py"):
+        x, mag = pusch_equalize(cfg, re_grid, h_est, nvar)
+    with profiling.trace("phy/llr.py"):
+        return pusch_llrs(cfg, re_grid, x, mag, h_est)
 
 
 def pusch_rx_grid(cfg: PuschConfig, re_grid: torch.Tensor, rv: int = 0,

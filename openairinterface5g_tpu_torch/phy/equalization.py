@@ -49,6 +49,12 @@ def zf_equalize(h: torch.Tensor, y: torch.Tensor, nvar=0.0):
 
     h: (..., n_rx, L, n_re), y: (..., n_rx, n_re).
     Returns (x (..., L, n_re) compensated, eff (..., L, n_re)).
+
+    The solves are solve_ex without its error check: torch.linalg.solve
+    reads the factorisation's status back to the host, which on a CUDA
+    tensor waits for the device.  With nvar > 0, A = G + nvar I is
+    positive definite and always solvable; a singular A (nvar 0 and a
+    rank-deficient h) gives non-finite values instead of an error.
     """
     hm = torch.movedim(h, -1, -3)                # (..., n_re, n_rx, L)
     ym = torch.movedim(y, -1, -2)[..., None]     # (..., n_re, n_rx, 1)
@@ -56,6 +62,7 @@ def zf_equalize(h: torch.Tensor, y: torch.Tensor, nvar=0.0):
     g = hh @ hm
     L = g.shape[-1]
     a = g + nvar * torch.eye(L, dtype=g.dtype, device=g.device)
-    sol = torch.linalg.solve(a, hh @ ym)[..., 0]
-    effm = torch.diagonal(torch.linalg.solve(a, g), dim1=-2, dim2=-1).real
+    sol = torch.linalg.solve_ex(a, hh @ ym, check_errors=False).result[..., 0]
+    effm = torch.diagonal(torch.linalg.solve_ex(a, g, check_errors=False).result,
+                          dim1=-2, dim2=-1).real
     return torch.movedim(sol, -1, -2), torch.movedim(effm.to(torch.float32), -1, -2)

@@ -30,6 +30,10 @@ benchmark's per-layer metrics, PERF.md section 3):
   models/pusch.py              pusch_rx                       host_self_ms.pusch
   phy/ofdm.py                  the FFT and the grid's extraction  host_self_ms.ofdm
   ops/pusch_frontend.py        frontend_planes (K3)           host_self_ms.frontend
+  phy/channel_estimation.py, phy/equalization.py, phy/llr.py
+                               pusch_frontend's eager chain, where K3 does not
+                               run: the estimate, the detector, the LLRs with
+                               their descrambling             host_self_ms.eager_frontend
   coding/rate_recovery, coding/decode, coding/desegment, coding/crc
                                                               host_self_ms.coding
   runtime/executor.py:dispatch step_fn and its event          the call's identity
@@ -37,6 +41,8 @@ benchmark's per-layer metrics, PERF.md section 3):
   runtime/executor.py          the copy to the host: enqueued at the hand-in
                                on the card, at the retire on the CPU  retire_copy_ms
   counter coding/decode:iters  K1's (B*C,) iterations         k1_iters_per_cb
+  counter phy/channel_estimation:nvar  the eager chain's (B,) noise
+                               variance estimate              chest_nvar_mean
   counter runtime/executor.py:inflight  earlier calls still on the card at a
                                hand-in                        inflight_calls.mean
   counter runtime/executor.py:held  seconds from a call's dispatch to its

@@ -1229,3 +1229,59 @@ def test_subcarrier_sharded_rx_at_273_prb_matches_cpu(cuda):
     for k in ("tb_bits", "tb_ok", "cb_ok"):
         assert torch.equal(card[k], cpu[k]), k
     assert bool(card["tb_ok"].all()) and torch.equal(card["tb_bits"], tb)
+
+
+def test_eager_frontend_never_waits_on_the_card(cuda):
+    """pusch_frontend at 4 layers (two CDM groups: K3 does not take it, so
+    the eager estimate, the per-RE MMSE and the LLRs run) at 106 PRB: after
+    one warm call, a second runs under set_sync_debug_mode("error"), so no
+    operation of it waits for the card, and gives the warm call's LLRs."""
+    cfg = pusch.PuschConfig(mu=1, n_prb=106, mcs=9, n_layers=4, n_rx=4)
+    assert not fe.supported(cfg)
+    y = _rx_grid(cfg, cuda, seed=21, B=2, noise=0.05)
+    warm = pusch.pusch_frontend(cfg, y)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        llr = pusch.pusch_frontend(cfg, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert llr.shape == (2, cfg.G) and bool(torch.isfinite(llr).all())
+    assert torch.allclose(llr, warm, rtol=0, atol=1e-5 * float(warm.abs().max()))
+
+
+def test_graphed_frontend_matches_the_eager_chain(cuda):
+    """At 4 layers on the card, 'auto' replays the eager chain from CUDA
+    graphs: its LLRs equal the chain run op by op ('reference'), a later
+    call with other samples leaves an earlier call's LLRs as they were, and
+    traced, each stage's span and the noise counter hold what the chain
+    gives."""
+    from openairinterface5g_tpu_torch.utils import profiling
+    cfg = pusch.PuschConfig(mu=1, n_prb=24, mcs=9, n_layers=4, n_rx=4)
+    eager = dataclasses.replace(cfg, frontend_backend="reference")
+    assert pusch._use_graphed_frontend(cfg, torch.zeros(1, device=cuda))
+    assert not pusch._use_graphed_frontend(eager, torch.zeros(1, device=cuda))
+    y1 = _rx_grid(cfg, cuda, seed=31, B=2, noise=0.05)
+    y2 = _rx_grid(cfg, cuda, seed=32, B=2, noise=0.05)
+    first = pusch.pusch_frontend(cfg, y1)
+    second = pusch.pusch_frontend(cfg, y2)
+    torch.cuda.synchronize()
+    for got, y in ((first, y1), (second, y2)):
+        ref = pusch.pusch_frontend(eager, y)
+        assert got.shape == ref.shape == (2, cfg.G)
+        assert torch.allclose(got, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    assert any(k[0] == cfg for k in pusch._GRAPHS)
+    profiling.reset()
+    profiling.enable()
+    try:
+        pusch.pusch_frontend(cfg, y1)
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    names = {s.name for s in snap["spans"]}
+    assert {"phy/channel_estimation.py", "phy/equalization.py", "phy/llr.py"} <= names
+    _, nvar = pusch.pusch_channel_estimate(cfg, y1)
+    (got,) = snap["counts"]["phy/channel_estimation:nvar"]
+    assert got.n == 2 and abs(got.total - float(nvar.sum())) <= 1e-6 * float(nvar.sum())
